@@ -1,0 +1,538 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's main path on one NVIDIA GPU and check it.
+
+    python3 chip_smoke.py                 # N = 2^20, as the project's H100 check
+    python3 chip_smoke.py --log2n 14      # a quicker, smaller run
+
+In order: the card's name and power limit; the build of the four CUDA
+kernels from ``src/repro_torch/csrc``; each kernel against its plain PyTorch
+version at the main path's shapes and at edge cases, with its time, the
+plain version's time, a library call's time and the roofline bound; then the
+main path at N = 2^20 (2D exponential kernel, l = 0.1, leaf 64, Chebyshev
+p = 6, eta = 0.9): ``construct_h2`` -> ``h2_matvec`` -> ``compress(tol=1e-3)``
+-> ``h2_matvec``, held to the plain backend on the card, to exact kernel rows
+computed in float64, and the compressed product to the uncompressed one.
+Launch counts are reset just before the main path and read just after.
+Any failure raises; the last line is the device JSON only on success.
+It needs a CUDA card: without one it exits non-zero and prints no result.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
+FP32_FLOPS_PER_S = 67e12         # H100 SXM fp32, outside the tensor cores
+TOL = {"batched_gemm": 1e-5, "coupling_mv": 1e-5, "batched_qr": 1e-4,
+       "batched_svd": 1e-4}
+REPLACES = {
+    "batched_gemm": "src/repro/kernels/batched_gemm.py:62",
+    "coupling_mv": "src/repro/kernels/coupling_mv.py:82",
+    "batched_qr": "src/repro/kernels/batched_qr.py:140",
+    "batched_svd": "src/repro/kernels/batched_svd.py:180",
+}
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def require(ok: bool, what: str) -> None:
+    """A check of the run: raises (and so fails the script) when not met."""
+    if not ok:
+        raise RuntimeError(f"check failed: {what}")
+
+
+def bound_ms(nbytes: float, flops: float):
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    tf = flops / FP32_FLOPS_PER_S * 1e3
+    return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+class Timer:
+    """Per-launch device time by CUDA events, L2 flushed before each launch
+    (a 256 MB write evicts the 50 MB L2)."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.flush_buf = torch.empty(64 << 20, dtype=torch.float32,
+                                     device="cuda")
+
+    def ms(self, fn, reps: int = 10, warmup: int = 2) -> float:
+        torch = self.torch
+        for _ in range(warmup):
+            fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(reps):
+            self.flush_buf.zero_()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        return statistics.median(times)
+
+
+def rel_err(got, want) -> tuple:
+    d = (got.double() - want.double()).abs().max().item()
+    scale = want.double().abs().max().item() or 1.0
+    return d, d / scale
+
+
+# ---------------------------------------------------------------------------
+# kernel phase: each kernel against its plain version on the card
+# ---------------------------------------------------------------------------
+
+def random_plan(torch, rows: int, maxb: int, nodes: int, gen, lo: int = 1):
+    """Slot plan of the HGEMV's layout: rows x maxb slots, cnt[r] in
+    [lo, maxb] blocks in the leading slots of row r (row 1 empty), sentinel
+    nb in the padding slots."""
+    cnt = torch.randint(lo, maxb + 1, (rows,), generator=gen, dtype=torch.int32)
+    cnt[0] = maxb
+    cnt[1] = 0                                          # an empty row
+    nb = int(cnt.sum())
+    slot = torch.arange(maxb, dtype=torch.int32)[None, :]
+    used = slot < cnt[:, None]
+    blk = torch.full((rows, maxb), nb, dtype=torch.int32)
+    blk[used] = torch.arange(nb, dtype=torch.int32)
+    col = torch.zeros((rows, maxb), dtype=torch.int32)
+    col[used] = torch.randint(0, nodes, (nb,), generator=gen, dtype=torch.int32)
+    return blk.reshape(-1), col.reshape(-1), cnt, nb
+
+
+def svd_flops(nb: int, n: int, k: int) -> float:
+    """Operations of a thin SVD with U and V, from the shapes alone:
+    Golub-Reinsch 14 m s^2 + 8 s^3, or R-SVD 6 m s^2 + 20 s^3 where fewer
+    (Golub & Van Loan, Matrix Computations, 4th ed., fig. 8.6.1), with
+    m = max(n, k) and s = min(n, k)."""
+    m, s = max(n, k), min(n, k)
+    return nb * float(min(14 * m * s * s + 8 * s ** 3,
+                          6 * m * s * s + 20 * s ** 3))
+
+
+def qr_flops(nb: int, n: int, k: int, want_q: bool) -> float:
+    kn = min(n, k)
+    one = 2.0 * n * k * kn - 2.0 * kn ** 3 / 3.0
+    return nb * one * (2 if want_q else 1)
+
+
+def kernel_phase(torch, timer, results: dict) -> None:
+    from repro_torch.kernels import batched_gemm as kbg
+    from repro_torch.kernels import batched_qr as kbq
+    from repro_torch.kernels import batched_svd as kbs
+    from repro_torch.kernels import coupling_mv as kcm
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator().manual_seed(0)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen).cuda()
+
+    def check(name, got, want, tol, what):
+        d, r = rel_err(got, want)
+        log(f"[kernel] {name} {what}: max_abs_err={d:.3e} rel={r:.3e} "
+            f"(tol {tol:g})")
+        require(r <= tol, f"{name} {what}: rel err {r:.3e} > {tol}")
+        return d
+
+    # ---- batched_gemm: leaf V^T x (transposed view, read by strides) ----
+    nl, m, k, nv = 16384, 64, 36, 16
+    v = rnd(nl, m, k)
+    x = rnd(nl, m, nv)
+    a = v.transpose(-1, -2)
+    err = check("batched_gemm", kbg.batched_gemm(a, x), ref.batched_gemm(a, x),
+                TOL["batched_gemm"], "leaf V^T x [16384,36,64]x[16384,64,16]")
+    for shp in [((8192, 36, 36), (8192, 36, 16)), ((16384, 64, 36),
+                                                   (16384, 36, 16)),
+                ((7, 5, 3), (7, 3, 1)), ((3, 1, 9), (3, 9, 2)),
+                ((5, 70, 33), (5, 33, 19))]:
+        a2, b2 = rnd(*shp[0]), rnd(*shp[1])
+        check("batched_gemm", kbg.batched_gemm(a2, b2),
+              ref.batched_gemm(a2, b2), TOL["batched_gemm"], f"{shp}")
+    ft = rnd(4096, 36, 36).transpose(-1, -2)
+    xh = rnd(4096, 36, 16)
+    check("batched_gemm", kbg.batched_gemm(ft, xh), ref.batched_gemm(ft, xh),
+          TOL["batched_gemm"], "F^T view [4096,36,36]")
+    for shp in [((0, 4, 4), (0, 4, 2)), ((3, 0, 4), (3, 4, 2)),
+                ((3, 4, 0), (3, 0, 2))]:
+        z = kbg.batched_gemm(rnd(*shp[0]), rnd(*shp[1]))
+        require(z.shape == (shp[0][0], shp[0][1], shp[1][2]) and
+                not z.any(), "zero-size gemm must give zeros")
+    nbytes = 4 * (a.numel() + x.numel() + nl * k * nv)
+    bnd, by = bound_ms(nbytes, 2.0 * nl * k * m * nv)
+    results["batched_gemm"] = dict(
+        max_abs_err=err, bound_ms=bnd, bound_by=by,
+        ms=timer.ms(lambda: kbg.batched_gemm(a, x)),
+        plain_ms=timer.ms(lambda: ref.batched_gemm(a, x)),
+        library_ms=timer.ms(lambda: torch.bmm(a, x)))
+
+    # ---- coupling_mv: dense leaves [81408,64,64], rows 16384, maxb 5 ----
+    rows, maxb = 16384, 5
+    blk, col, cnt, nb = random_plan(torch, rows, maxb, rows, gen, lo=maxb)
+    blk, col, cnt = blk.cuda(), col.cuda(), cnt.cuda()
+    s = rnd(nb, m, m)
+    xl = rnd(rows, m, nv)
+    err = check("coupling_mv", kcm.coupling_mv(s, xl, blk, col, cnt, maxb=maxb),
+                ref.coupling_mv(s, xl, blk, col, cnt, maxb=maxb),
+                TOL["coupling_mv"], f"dense leaves [{nb},64,64] nv=16")
+    for (r2, mb2, k2, nv2) in [(16384, 17, 36, 16), (16384, 17, 36, 1),
+                               (4096, 9, 7, 16), (64, 3, 1, 5),
+                               (33, 4, 130, 20)]:
+        b2, c2, n2, nb2 = random_plan(torch, r2, mb2, r2, gen)
+        b2, c2, n2 = b2.cuda(), c2.cuda(), n2.cuda()
+        s2, x2 = rnd(nb2, k2, k2), rnd(r2, k2, nv2)
+        check("coupling_mv", kcm.coupling_mv(s2, x2, b2, c2, n2, maxb=mb2),
+              ref.coupling_mv(s2, x2, b2, c2, n2, maxb=mb2),
+              TOL["coupling_mv"], f"rows={r2} maxb={mb2} k={k2} nv={nv2}")
+    z = kcm.coupling_mv(rnd(0, 4, 4), rnd(8, 4, 2),
+                        torch.zeros(0, dtype=torch.int32, device="cuda"),
+                        torch.zeros(0, dtype=torch.int32, device="cuda"),
+                        torch.zeros(8, dtype=torch.int32, device="cuda"),
+                        maxb=0)
+    require(z.shape == (8, 4, 2) and not z.any(), "maxb=0 must give zeros")
+    nbytes = 4 * (s.numel() + xl.numel() + rows * m * nv) + \
+        4 * (2 * rows * maxb + rows)
+    bnd, by = bound_ms(nbytes, 2.0 * nb * m * m * nv)
+    results["coupling_mv"] = dict(
+        max_abs_err=err, bound_ms=bnd, bound_by=by,
+        ms=timer.ms(lambda: kcm.coupling_mv(s, xl, blk, col, cnt, maxb=maxb)),
+        plain_ms=timer.ms(
+            lambda: ref.coupling_mv(s, xl, blk, col, cnt, maxb=maxb), reps=3),
+        library_ms=None)
+
+    # ---- batched_qr: leaf [16384,64,36]; stacks [8192,72,36]; weights
+    # stack [16384,648,36] (R only); wide, rank-deficient, global path ----
+    def qr_case(aa, what, q_cols=None):
+        # a rank-deficient panel's Q columns past its rank complete the
+        # basis arbitrarily; they are compared through R and Q^T Q only
+        q, r = kbq.batched_qr(aa)
+        qp, rp = ref.batched_qr(aa)
+        e1 = check("batched_qr", q[..., :q_cols], qp[..., :q_cols],
+                   TOL["batched_qr"], what + " Q")
+        eye = torch.eye(q.shape[-1], device="cuda")
+        check("batched_qr", q.transpose(-1, -2) @ q, eye.expand_as(
+            q.transpose(-1, -2) @ q), TOL["batched_qr"], what + " Q^T Q")
+        e2 = check("batched_qr", r, rp, TOL["batched_qr"], what + " R")
+        return max(e1, e2)
+
+    leaf = rnd(16384, 64, 36)
+    err = qr_case(leaf, "leaf [16384,64,36]")
+    qr_case(rnd(8192, 72, 36), "stacked transfers [8192,72,36]")
+    qr_case(rnd(64, 8, 36), "wide [64,8,36]")
+    base = rnd(32, 40, 3)
+    qr_case(base @ rnd(32, 3, 9), "rank-deficient [32,40,9]", q_cols=3)
+    zc = rnd(32, 40, 9)
+    zc[:, :, 4] = 0.0
+    qr_case(zc, "zero column [32,40,9]")
+    mid = rnd(256, 648, 36)
+    q0, r0 = kbq.batched_qr(mid)
+    q1, r1 = kbq.batched_qr(mid, force_global=True)
+    require(torch.equal(q0, q1) and torch.equal(r0, r1),
+            "shared and global QR paths differ")
+    log("[kernel] batched_qr shared vs global path on [256,648,36]: equal")
+    qr_case(rnd(64, 1152, 64), "global path [64,1152,64]")
+    wstack = rnd(16384, 648, 36)
+    rw = kbq.batched_qr_r(wstack)
+    require(torch.equal(rw[:1024], kbq.batched_qr(wstack[:1024])[1]),
+            "R-only entry differs from the full QR's R")
+    check("batched_qr", rw[:1024], ref.batched_qr(wstack[:1024])[1],
+          TOL["batched_qr"], "weights stack R [1024 of 16384,648,36]")
+    nbytes = 4 * (leaf.numel() + 16384 * 64 * 36 + 16384 * 36 * 36)
+    bnd, by = bound_ms(nbytes, qr_flops(16384, 64, 36, True))
+    results["batched_qr"] = dict(
+        max_abs_err=err, bound_ms=bnd, bound_by=by,
+        ms=timer.ms(lambda: kbq.batched_qr(leaf)),
+        plain_ms=timer.ms(lambda: ref.batched_qr(leaf), reps=3),
+        library_ms=timer.ms(lambda: torch.linalg.qr(leaf), reps=3))
+    wbytes = 4 * (wstack.numel() + 16384 * 36 * 36)
+    wb, wby = bound_ms(wbytes, qr_flops(16384, 648, 36, False))
+    log(f"[kernel] batched_qr_r weights stack [16384,648,36]: "
+        f"ms={timer.ms(lambda: kbq.batched_qr_r(wstack), reps=3):.3f} "
+        f"bound_ms={wb:.3f} ({wby})")
+    del wstack, rw
+
+    # ---- batched_svd: leaf R^T [16384,36,36]; inner [8192,72,36] ----
+    def svd_case(aa, what):
+        u, sv, vt = kbs.batched_svd(aa)
+        up, sp, vtp = ref.batched_svd(aa)
+        s64 = torch.linalg.svd(aa.double(), full_matrices=False)[1]
+        smax = s64.abs().max(dim=-1).values[:, None]
+        es = ((sv.double() - s64).abs() / smax).max().item()
+        ep = ((sp.double() - s64).abs() / smax).max().item()
+        ekp = ((sv - sp).abs() / sp.abs().max(dim=-1).values[:, None]
+               ).max().item()
+        rec = torch.einsum("bnk,bk,bkj->bnj", u, sv, vt)
+        er = ((rec - aa).flatten(1).norm(dim=1) /
+              aa.flatten(1).norm(dim=1).clamp_min(1e-30)).max().item()
+        gram = u.transpose(-1, -2) @ u
+        eo = (gram - torch.eye(gram.shape[-1], device="cuda")).abs().max().item()
+        log(f"[kernel] batched_svd {what}: sigma vs fp64 kernel={es:.3e} "
+            f"plain={ep:.3e} kernel-vs-plain={ekp:.3e} recon={er:.3e} "
+            f"UtU-I={eo:.3e} (tol 1e-4)")
+        require(ekp <= 1e-4 and er <= 1e-4 and eo <= 1e-4,
+                f"batched_svd {what} out of tolerance")
+        return (sv - sp).abs().max().item()
+
+    rl = rnd(16384, 36, 36)
+    err = svd_case(rl, "leaf R^T [16384,36,36]")
+    svd_case(rnd(8192, 72, 36), "inner [8192,72,36]")
+    svd_case(rnd(64, 18, 7), "odd k [64,18,7]")
+    svd_case(rnd(64, 4, 9), "wide [64,4,9]")
+    g = torch.linalg.qr(rnd(32, 24, 12))[0]
+    h = torch.linalg.qr(rnd(32, 12, 12))[0]
+    graded = (g * torch.logspace(0, -7, 12, device="cuda")) @ \
+        h.transpose(-1, -2)
+    svd_case(graded, "graded spectrum 1e-7 [32,24,12]")
+    nbytes = 4 * (rl.numel() * 2 + 16384 * 36 + 16384 * 36 * 36)
+    bnd, by = bound_ms(nbytes, svd_flops(16384, 36, 36))
+    results["batched_svd"] = dict(
+        max_abs_err=err, bound_ms=bnd, bound_by=by,
+        ms=timer.ms(lambda: kbs.batched_svd(rl), reps=5),
+        # cuSOLVER takes ~15 s per call here: two timed calls each, warmed
+        # by svd_case's own call of the plain version
+        plain_ms=timer.ms(lambda: ref.batched_svd(rl), reps=2, warmup=0),
+        library_ms=timer.ms(lambda: torch.linalg.svd(rl, full_matrices=False),
+                            reps=2, warmup=0))
+    for name, r in results.items():
+        log(f"[kernel] {name}: ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+            f"library_ms={r['library_ms']} bound_ms={r['bound_ms']:.4f} "
+            f"({r['bound_by']})")
+
+
+# ---------------------------------------------------------------------------
+# main path
+# ---------------------------------------------------------------------------
+
+def kernel_rows(torch, points, kernel, perm, rows, x, chunk: int = 64):
+    """Exact ``(K x)[rows]`` in float64, chunked over rows (never N^2);
+    ``rows`` index tree order, ``x`` is ``[N, nv]`` in tree order."""
+    p = torch.as_tensor(points[perm], dtype=torch.float64, device=x.device)
+    xd = x.double()
+    return torch.cat([kernel(p[rows[a:a + chunk]][:, None, :], p[None, :, :])
+                      @ xd for a in range(0, rows.shape[0], chunk)])
+
+
+def hgemv_phase_ms(torch, shape, data, x, backend: str) -> dict:
+    """Per-phase time of one HGEMV: CUDA events recorded between the four
+    phases (a phase's time includes any gap while the host enqueues it)."""
+    from repro_torch.core import matvec as mv
+    xl = x.reshape(shape.n_leaves, shape.leaf_size, x.shape[-1])
+    names = ("upsweep", "coupling", "downsweep", "dense")
+    out = {k: [] for k in names}
+    for i in range(8):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        ev[0].record()
+        xhat = mv.upsweep(shape, data, xl, backend)
+        ev[1].record()
+        yhat = mv.coupling_multiply(shape, data, xhat, backend)
+        ev[2].record()
+        mv.downsweep(shape, data, yhat, backend)
+        ev[3].record()
+        mv.dense_multiply(shape, data, xl, backend)
+        ev[4].record()
+        torch.cuda.synchronize()
+        if i >= 2:
+            for j, k in enumerate(names):
+                out[k].append(ev[j].elapsed_time(ev[j + 1]))
+    return {k: statistics.median(v) for k, v in out.items()}
+
+
+def main_path(torch, log2n: int, device: str = "cuda") -> dict:
+    from repro_torch.core.clustering import regular_grid_points
+    from repro_torch.core.compression import compress
+    from repro_torch.core.construction import construct_h2
+    from repro_torch.core.kernels_fn import exponential_kernel
+    from repro_torch.core.matvec import h2_matvec
+    from repro_torch.kernels import ops
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    side = 1 << (log2n // 2)
+    pts = regular_grid_points(side, 2)
+    kern = exponential_kernel(0.1)
+    x = torch.randn(side * side, 16, generator=torch.Generator().manual_seed(1)
+                    ).to(device)
+
+    ops.reset_launch_counts()
+    sync()
+    t0 = time.perf_counter()
+    shape, data, tree, _ = construct_h2(pts, kern, leaf_size=64, cheb_p=6,
+                                        eta=0.9, device=device)
+    sync()
+    t_construct = time.perf_counter() - t0
+    log(f"[main] construct_h2 N={shape.n} depth={shape.depth}: "
+        f"{t_construct:.3f} s, operator {data.nbytes() / 1e9:.3f} GB, "
+        f"coupling blocks {sum(shape.coupling_counts)}, dense blocks "
+        f"{shape.dense_count}, row_maxb {max(shape.row_maxb)}, dense_maxb "
+        f"{shape.dense_maxb}")
+
+    before = ops.launch_counts()
+    y = h2_matvec(shape, data, x, backend="cuda")
+    sync()
+    per_hgemv = {k: v - before[k] for k, v in ops.launch_counts().items()}
+    y_plain = h2_matvec(shape, data, x, backend="torch")
+    _, r_plain = rel_err(y, y_plain)
+    rel_plain = ((y - y_plain).norm() / y_plain.norm()).item()
+    log(f"[main] h2_matvec nv=16 cuda vs torch backend: rel norm err "
+        f"{rel_plain:.3e}, max rel {r_plain:.3e} (tol 1e-5)")
+    require(bool(torch.isfinite(y).all()) and y.shape == (shape.n, 16),
+            "HGEMV output not finite or of the wrong shape")
+    require(rel_plain <= 1e-5, f"HGEMV kernel vs plain {rel_plain:.3e}")
+
+    rows = torch.randperm(shape.n, generator=torch.Generator().manual_seed(2)
+                          )[:512].to(device)
+    exact = kernel_rows(torch, pts, kern, tree.perm, rows, x)
+    rel_exact = ((y[rows].double() - exact).norm() / exact.norm()).item()
+    log(f"[main] h2_matvec vs 512 exact rows (float64): rel err "
+        f"{rel_exact:.3e} (tol 1e-4)")
+    require(rel_exact <= 1e-4, f"HGEMV vs exact rows {rel_exact:.3e}")
+
+    before = ops.launch_counts()
+    sync()
+    t0 = time.perf_counter()
+    cshape, cdata = compress(shape, data, tol=1e-3, backend="cuda")
+    sync()
+    t_compress = time.perf_counter() - t0
+    per_compress = {k: v - before[k] for k, v in ops.launch_counts().items()}
+    ratio = shape.memory_lowrank() / cshape.memory_lowrank()
+    log(f"[main] compress(tol=1e-3) cuda: {t_compress:.3f} s, ranks "
+        f"{cshape.ranks}, low-rank memory ratio {ratio:.2f}x")
+
+    yc = h2_matvec(cshape, cdata, x, backend="cuda")
+    sync()
+    launches = ops.launch_counts()           # the main path ends here
+    rel_c = ((yc - y).norm() / y.norm()).item()
+    log(f"[main] compressed h2_matvec vs uncompressed: rel err {rel_c:.3e} "
+        f"(tol 5e-3)")
+    require(bool(torch.isfinite(yc).all()) and rel_c <= 5e-3,
+            f"compressed HGEMV vs uncompressed {rel_c:.3e}")
+
+    t0 = time.perf_counter()
+    pshape, pdata = compress(shape, data, tol=1e-3, backend="torch")
+    sync()
+    t_compress_plain = time.perf_counter() - t0
+    log(f"[main] compress(tol=1e-3) torch backend: {t_compress_plain:.3f} s, "
+        f"ranks {pshape.ranks}")
+    require(all(abs(a - b) <= 1 for a, b in zip(pshape.ranks, cshape.ranks)),
+            "ranks of the kernel and plain compress differ by more than 1")
+    yc_plain = h2_matvec(cshape, cdata, x, backend="torch")
+    rel_cp = ((yc - yc_plain).norm() / yc_plain.norm()).item()
+    log(f"[main] compressed h2_matvec cuda vs torch backend: {rel_cp:.3e}")
+    require(rel_cp <= 1e-5, f"compressed HGEMV kernel vs plain {rel_cp:.3e}")
+    del pdata
+
+    def hgemv_ms(s, d, backend, reps=20):
+        ts = []
+        for i in range(reps + 3):
+            sync()
+            t = time.perf_counter()
+            h2_matvec(s, d, x, backend=backend)
+            sync()
+            if i >= 3:
+                ts.append((time.perf_counter() - t) * 1e3)
+        return statistics.median(ts)
+
+    times = dict(
+        hgemv_ms=hgemv_ms(shape, data, "cuda"),
+        hgemv_plain_ms=hgemv_ms(shape, data, "torch"),
+        hgemv_compressed_ms=hgemv_ms(cshape, cdata, "cuda"),
+        hgemv_compressed_plain_ms=hgemv_ms(cshape, cdata, "torch"))
+    log("[main] median warm HGEMV nv=16 (host clock around synchronize): " +
+        ", ".join(f"{k}={v:.3f}" for k, v in times.items()))
+    if device == "cuda":
+        for backend in ("cuda", "torch"):
+            phases = hgemv_phase_ms(torch, shape, data, x, backend)
+            log(f"[main] HGEMV phases, backend={backend} (ms between CUDA "
+                f"events, median of 6): " +
+                ", ".join(f"{k}={v:.3f}" for k, v in phases.items()))
+    log(f"[main] launches per HGEMV: {per_hgemv}; per compress: "
+        f"{per_compress}")
+    n_coupling_levels = sum(1 for l in range(shape.depth + 1)
+                            if shape.coupling_counts[l] and shape.ranks[l])
+    expect = {"batched_gemm": 2 * shape.depth + 2,
+              "coupling_mv": n_coupling_levels + 1}
+    match = all(per_hgemv[k] == v for k, v in expect.items())
+    log(f"[main] expected per HGEMV from the code: {expect} -> "
+        f"{'matches' if match else 'DIFFERS'}")
+    require(match, "launches per HGEMV differ from the code's count")
+    return dict(launches=launches, construct_s=t_construct,
+                compress_s=t_compress, compress_plain_s=t_compress_plain,
+                ranks=cshape.ranks, memory_ratio=ratio, rel_exact=rel_exact,
+                rel_compressed=rel_c, **times)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--log2n", type=int, default=20,
+                    help="points = 2^log2n on a square grid (even)")
+    args = ap.parse_args()
+
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this check runs only on a GPU",
+              file=sys.stderr)
+        return 2
+    from repro_torch.kernels import _build
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True
+    ).stdout.strip().splitlines()[0]
+    log(smi)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    t0 = time.perf_counter()
+    logs = _build.build_all()
+    log(f"[build] {len(logs)} kernels built in {time.perf_counter() - t0:.1f} s")
+    for name, text in logs.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[build] {name}: {line.strip()}")
+
+    timer = Timer(torch)
+    results: dict = {}
+    kernel_phase(torch, timer, results)
+    torch.cuda.reset_peak_memory_stats()
+    main = main_path(torch, args.log2n)
+    for name, n in main["launches"].items():
+        log(f"[kernels] {name}: {n} launches on the main path")
+        require(n > 0, f"{name} was not launched on the main path")
+    log(f"[memory] max_memory_allocated {torch.cuda.max_memory_allocated()}"
+        f" bytes")
+    kernels = []
+    for name in ("batched_gemm", "coupling_mv", "batched_qr", "batched_svd"):
+        r = results.get(name, {})
+        kernels.append(dict(
+            name=name, route="cuda",
+            source=f"src/repro_torch/csrc/{name}.cu",
+            replaces=REPLACES[name], launches=main["launches"][name],
+            max_abs_err=r.get("max_abs_err"), ms=r.get("ms"),
+            plain_ms=r.get("plain_ms"), bound_ms=r.get("bound_ms"),
+            bound_by=r.get("bound_by"), library_ms=r.get("library_ms")))
+    summary = {k: v for k, v in main.items() if k != "launches"}
+    log(json.dumps({"main_path": summary, "card": smi}))
+    log(smi)
+    log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

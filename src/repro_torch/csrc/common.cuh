@@ -1,0 +1,51 @@
+// Shared helpers of the hand-written kernels (plain C interface, ctypes).
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <algorithm>
+
+extern "C" const char* repro_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// Sum over the 32 lanes of a warp; every lane gets the result.
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Sum over the whole block; every thread gets the result.  ``red`` is
+// shared scratch of at least 32 floats; the call holds two barriers.
+__device__ __forceinline__ float block_sum(float v, float* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = (blockDim.x + 31) >> 5;
+  v = warp_sum(v);
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  float t = 0.f;
+  for (int w = 0; w < nwarps; ++w) t += red[w];
+  __syncthreads();
+  return t;
+}
+
+// Largest dynamic shared memory one block may opt in to on this device.
+extern "C" int repro_max_dynamic_smem() {
+  int dev = 0, bytes = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return bytes;
+}
+
+// Launch configuration for a kernel that needs ``bytes`` of dynamic shared
+// memory: above the 48 KB default it must opt in first, or the launch is
+// refused.  Returns the CUDA error code (0 on success).
+template <typename Kernel>
+static inline int allow_dynamic_smem(Kernel kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return 0;
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes)));
+}

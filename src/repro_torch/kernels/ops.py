@@ -1,0 +1,88 @@
+"""Backend dispatch over the hand-written kernels.
+
+``backend="cuda"`` (the default) launches the CUDA kernel on a CUDA tensor
+-- a failed build or launch raises, nothing falls back -- and takes the
+plain version in ``ref.py`` only for a tensor that lies on the CPU.
+``backend="torch"`` is the plain PyTorch path on any device (the
+counterpart of the reference's ``"jnp"``).
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+
+from . import batched_gemm as _bg
+from . import batched_qr as _bq
+from . import batched_svd as _bs
+from . import coupling_mv as _cm
+from . import ref
+
+BACKENDS = ("cuda", "torch")
+_KERNEL_MODULES = {"batched_gemm": _bg, "coupling_mv": _cm,
+                   "batched_qr": _bq, "batched_svd": _bs}
+
+
+def launch_counts() -> Dict[str, int]:
+    """Launches of each kernel since the last ``reset_launch_counts``."""
+    return {name: mod.LAUNCHES for name, mod in _KERNEL_MODULES.items()}
+
+
+def reset_launch_counts() -> None:
+    for mod in _KERNEL_MODULES.values():
+        mod.LAUNCHES = 0
+
+
+def use_kernel(t: torch.Tensor, backend: str) -> bool:
+    """True when ``backend`` asks for the kernel and ``t`` is on the card."""
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; expected {BACKENDS}")
+    return backend == "cuda" and t.is_cuda
+
+
+def batched_gemm(a: torch.Tensor, b: torch.Tensor,
+                 backend: str = "cuda") -> torch.Tensor:
+    if use_kernel(a, backend):
+        return _bg.batched_gemm(a, b)
+    if 0 in a.shape or 0 in b.shape:
+        return a.new_zeros((a.shape[0], a.shape[1], b.shape[2]))
+    return ref.batched_gemm(a, b)
+
+
+def coupling_mv(s: torch.Tensor, x: torch.Tensor, blk: torch.Tensor,
+                col: torch.Tensor, cnt: torch.Tensor, *, maxb: int,
+                backend: str = "cuda") -> torch.Tensor:
+    if use_kernel(s, backend):
+        return _cm.coupling_mv(s, x, blk, col, cnt, maxb=maxb)
+    return ref.coupling_mv(s, x, blk, col, cnt, maxb=maxb)
+
+
+def backend_qr(a: torch.Tensor, backend: str = "cuda"
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Reduced QR, sign-fixed (the helper orthogonalize shares)."""
+    if use_kernel(a, backend):
+        return _bq.batched_qr(a)
+    nb, n, k = a.shape
+    if 0 in a.shape:
+        kn = min(n, k)
+        return a.new_zeros((nb, n, kn)), a.new_zeros((nb, kn, k))
+    return ref.batched_qr(a)
+
+
+def backend_qr_r(a: torch.Tensor, backend: str = "cuda") -> torch.Tensor:
+    """R factor only (the compression weights)."""
+    if use_kernel(a, backend):
+        return _bq.batched_qr_r(a)
+    return backend_qr(a, backend)[1]
+
+
+def backend_svd(a: torch.Tensor, backend: str = "cuda"
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    if use_kernel(a, backend):
+        return _bs.batched_svd(a)
+    nb, n, k = a.shape
+    if 0 in a.shape:
+        kn = min(n, k)
+        return (a.new_zeros((nb, n, kn)), a.new_zeros((nb, kn)),
+                a.new_zeros((nb, kn, k)))
+    return ref.batched_svd(a)

@@ -1,0 +1,43 @@
+"""Plain PyTorch versions of every hand-written kernel (the ``ref.py``
+contract): the CPU path, the ``backend="torch"`` path, and what the kernels
+are held to on the card."""
+from __future__ import annotations
+
+import torch
+
+
+def batched_gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.einsum("bmk,bkn->bmn", a, b)
+
+
+def batched_qr(a: torch.Tensor):
+    """Reduced QR canonicalized to a non-negative R diagonal (the unique
+    form the kernel emits, so the two agree elementwise)."""
+    q, r = torch.linalg.qr(a, mode="reduced")
+    d = torch.where(torch.diagonal(r, dim1=-2, dim2=-1) < 0.0, -1.0, 1.0
+                    ).to(a.dtype)
+    return q * d[..., None, :], r * d[..., :, None]
+
+
+def batched_svd(a: torch.Tensor):
+    return torch.linalg.svd(a, full_matrices=False)
+
+
+def coupling_mv(s: torch.Tensor, x: torch.Tensor, blk: torch.Tensor,
+                col: torch.Tensor, cnt: torch.Tensor, *, maxb: int
+                ) -> torch.Tensor:
+    """Plan-based block-sparse MV: take-by-plan (sentinel -> zero block) ->
+    batched product -> masked sum over the slots."""
+    rows = cnt.shape[0]
+    nb, k1 = s.shape[0], s.shape[-2]
+    idx = blk.long()
+    valid = idx < nb
+    sg = torch.where(valid[:, None, None], s[idx.clamp(max=max(nb - 1, 0))],
+                     s.new_zeros(())) if nb else \
+        s.new_zeros((idx.shape[0],) + tuple(s.shape[1:]))
+    xg = x[col.long()]
+    prod = torch.einsum("bij,bjv->biv", sg, xg)
+    mask = torch.arange(maxb, dtype=cnt.dtype, device=cnt.device
+                        )[None, :] < cnt[:, None]
+    prod = prod.reshape(rows, maxb, k1, x.shape[-1]) * mask[:, :, None, None]
+    return prod.sum(dim=1)
