@@ -4,15 +4,21 @@
     python3 chip_smoke.py                 # N = 2^20, as the project's H100 check
     python3 chip_smoke.py --log2n 14      # a quicker, smaller run
 
-In order: the card's name and power limit; the build of the four CUDA
+In order: the card's name and power limit; the build of the five CUDA
 kernels from ``src/repro_torch/csrc``; each kernel against its plain PyTorch
 version at the main path's shapes and at edge cases, with its time, the
 plain version's time, a library call's time and the roofline bound; then the
 main path at N = 2^20 (2D exponential kernel, l = 0.1, leaf 64, Chebyshev
 p = 6, eta = 0.9): ``construct_h2`` -> ``h2_matvec`` -> ``compress(tol=1e-3)``
 -> ``h2_matvec``, held to the plain backend on the card, to exact kernel rows
-computed in float64, and the compressed product to the uncompressed one.
-Launch counts are reset just before the main path and read just after.
+computed in float64, and the compressed product to the uncompressed one;
+then the distributed path: ``partition_h2`` of that operator over 4 ranks,
+and 4 spawned processes in a gloo group sharing the card (payloads staged
+through pinned host memory) that run the halo-plan distributed HGEMV
+(``halo_pack`` packs every exchange), its plain twin, the allgather
+baseline, ``make_dist_compress`` to the main path's ranks and the
+compressed distributed HGEMV, each rank held to the single-device rows.
+Launch counts are reset just before each path and read just after.
 Any failure raises; the last line is the device JSON only on success.
 It needs a CUDA card: without one it exits non-zero and prints no result.
 """
@@ -32,13 +38,15 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 FP32_FLOPS_PER_S = 67e12         # H100 SXM fp32, outside the tensor cores
 TOL = {"batched_gemm": 1e-5, "coupling_mv": 1e-5, "batched_qr": 1e-4,
-       "batched_svd": 1e-4}
+       "batched_svd": 1e-4, "halo_pack": 0.0}
 REPLACES = {
     "batched_gemm": "src/repro/kernels/batched_gemm.py:62",
     "coupling_mv": "src/repro/kernels/coupling_mv.py:82",
     "batched_qr": "src/repro/kernels/batched_qr.py:140",
     "batched_svd": "src/repro/kernels/batched_svd.py:180",
+    "halo_pack": "src/repro/kernels/halo_pack.py:49",
 }
+KERNELS = tuple(REPLACES)
 
 
 def log(msg: str) -> None:
@@ -127,6 +135,72 @@ def qr_flops(nb: int, n: int, k: int, want_q: bool) -> float:
     return nb * one * (2 if want_q else 1)
 
 
+def bsr_library_ms(torch, timer, s, xl, blk, col, cnt, nb, maxb):
+    """``torch.sparse.mm`` of a BSR matrix holding the same blocks against
+    ``x`` viewed as ``[nodes*k2, nv]``: the one PyTorch call computing
+    ``coupling_mv``'s function.  Built outside the timed region and held to
+    the plain version; None (with the reason printed) where this torch
+    cannot multiply float32 BSR by dense on the card."""
+    from repro_torch.kernels import ref
+    rows, k1, k2 = cnt.shape[0], s.shape[1], s.shape[2]
+    used = blk < nb                      # slots in row order = block order
+    crow = torch.cat([cnt.new_zeros(1), torch.cumsum(cnt, 0)]).to(torch.int64)
+    bsr = torch.sparse_bsr_tensor(crow, col[used].to(torch.int64), s,
+                                  size=(rows * k1, xl.shape[0] * k2))
+    xf = xl.reshape(-1, xl.shape[-1])
+    try:
+        got = torch.sparse.mm(bsr, xf)
+    except (RuntimeError, NotImplementedError) as e:
+        log(f"[kernel] coupling_mv library (BSR @ dense, float32): "
+            f"not available in torch {torch.__version__}: {e}")
+        return None
+    want = ref.coupling_mv(s, xl, blk, col, cnt, maxb=maxb).reshape(got.shape)
+    d, r = rel_err(got, want)
+    log(f"[kernel] coupling_mv library BSR @ dense vs plain: max_abs_err="
+        f"{d:.3e} rel={r:.3e} (tol 1e-5)")
+    require(r <= 1e-5, f"BSR library product disagrees with plain: {r:.3e}")
+    return timer.ms(lambda: torch.sparse.mm(bsr, xf))
+
+
+def halo_pack_cases(torch, rnd) -> float:
+    """``halo_pack`` against ``index_select`` at its edge cases: bitwise
+    equal (a copy).  Returns the largest absolute error (0)."""
+    from repro_torch.kernels import halo_pack as khp
+    from repro_torch.kernels import ref
+    worst = 0.0
+    for n, k, nv, cap, what in [(300, 36, 16, 130, "level rows [36,16]"),
+                                (64, 64, 16, 40, "dense rows [64,16]"),
+                                (50, 36, 1, 33, "nv=1"),
+                                (50, 7, 3, 17, "k*nv*4 % 16 != 0"),
+                                (10, 36, 16, 0, "cap=0")]:
+        x = rnd(n, k, nv)
+        idx = torch.randint(0, n, (cap,), dtype=torch.int32)
+        idx[cap // 2:] = 0                    # padding repeats row 0
+        idx[:min(cap, 4)] = 3                 # repeated rows
+        idx = idx.cuda()
+        before = khp.LAUNCHES
+        got = khp.halo_pack(x, idx)
+        torch.cuda.synchronize()
+        require(khp.LAUNCHES == before + (cap > 0),
+                f"halo_pack launch count for cap={cap}")
+        want = ref.halo_pack(x, idx)
+        require(got.shape == want.shape and torch.equal(got, want),
+                f"halo_pack {what} differs from index_select")
+        # into a slice of a larger flat buffer, at an offset of 3 floats
+        # (12 bytes: the unaligned path); nothing outside it may change
+        flat = torch.full((cap * k * nv + 8,), float("nan"), device="cuda")
+        out = flat[3:3 + cap * k * nv].view(cap, k, nv)
+        khp.halo_pack(x, idx, out=out)
+        require(torch.equal(out, want), f"halo_pack out= {what}")
+        outside = torch.cat([flat[:3], flat[3 + cap * k * nv:]])
+        require(bool(torch.isnan(outside).all()),
+                f"halo_pack out= {what} wrote outside its slice")
+        worst = max(worst, (got - want).abs().max().item() if cap else 0.0)
+        log(f"[kernel] halo_pack {what} n={n} cap={cap}: equal to "
+            f"index_select, out= slice untouched outside")
+    return worst
+
+
 def kernel_phase(torch, timer, results: dict) -> None:
     from repro_torch.kernels import batched_gemm as kbg
     from repro_torch.kernels import batched_qr as kbq
@@ -180,6 +254,15 @@ def kernel_phase(torch, timer, results: dict) -> None:
     # ---- coupling_mv: dense leaves [81408,64,64], rows 16384, maxb 5 ----
     rows, maxb = 16384, 5
     blk, col, cnt, nb = random_plan(torch, rows, maxb, rows, gen, lo=maxb)
+    # distinct, ascending columns in each row, as a leaf's dense blocks
+    # have (and as the BSR library call below needs); drawn from a
+    # generator of their own, so every other input stays as it was
+    cgen = torch.Generator().manual_seed(7)
+    col = (torch.sort(torch.randint(0, rows - maxb, (rows, maxb),
+                                    generator=cgen, dtype=torch.int32),
+                      dim=1)
+           .values + torch.arange(maxb, dtype=torch.int32)).reshape(-1)
+    col = torch.where(blk < nb, col, torch.zeros_like(col))
     blk, col, cnt = blk.cuda(), col.cuda(), cnt.cuda()
     s = rnd(nb, m, m)
     xl = rnd(rows, m, nv)
@@ -209,7 +292,8 @@ def kernel_phase(torch, timer, results: dict) -> None:
         ms=timer.ms(lambda: kcm.coupling_mv(s, xl, blk, col, cnt, maxb=maxb)),
         plain_ms=timer.ms(
             lambda: ref.coupling_mv(s, xl, blk, col, cnt, maxb=maxb), reps=3),
-        library_ms=None)
+        library_ms=bsr_library_ms(torch, timer, s, xl, blk, col, cnt, nb,
+                                  maxb))
 
     # ---- batched_qr: leaf [16384,64,36]; stacks [8192,72,36]; weights
     # stack [16384,648,36] (R only); wide, rank-deficient, global path ----
@@ -304,10 +388,14 @@ def kernel_phase(torch, timer, results: dict) -> None:
         plain_ms=timer.ms(lambda: ref.batched_svd(rl), reps=2, warmup=0),
         library_ms=timer.ms(lambda: torch.linalg.svd(rl, full_matrices=False),
                             reps=2, warmup=0))
+    # ---- halo_pack: edge cases here; timed at the distributed phase's
+    # largest launch, once the partition exists (dist_phase) ----
+    results["halo_pack"] = dict(max_abs_err=halo_pack_cases(torch, rnd))
     for name, r in results.items():
-        log(f"[kernel] {name}: ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
-            f"library_ms={r['library_ms']} bound_ms={r['bound_ms']:.4f} "
-            f"({r['bound_by']})")
+        if "ms" in r:
+            log(f"[kernel] {name}: ms={r['ms']:.4f} "
+                f"plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']} "
+                f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']})")
 
 
 # ---------------------------------------------------------------------------
@@ -348,7 +436,7 @@ def hgemv_phase_ms(torch, shape, data, x, backend: str) -> dict:
     return {k: statistics.median(v) for k, v in out.items()}
 
 
-def main_path(torch, log2n: int, device: str = "cuda") -> dict:
+def main_path(torch, log2n: int, device: str = "cuda") -> tuple:
     from repro_torch.core.clustering import regular_grid_points
     from repro_torch.core.compression import compress
     from repro_torch.core.construction import construct_h2
@@ -468,10 +556,286 @@ def main_path(torch, log2n: int, device: str = "cuda") -> dict:
     log(f"[main] expected per HGEMV from the code: {expect} -> "
         f"{'matches' if match else 'DIFFERS'}")
     require(match, "launches per HGEMV differ from the code's count")
+    state = dict(shape=shape, data=data, x=x, y=y, ranks=cshape.ranks)
     return dict(launches=launches, construct_s=t_construct,
                 compress_s=t_compress, compress_plain_s=t_compress_plain,
                 ranks=cshape.ranks, memory_ratio=ratio, rel_exact=rel_exact,
-                rel_compressed=rel_c, **times)
+                rel_compressed=rel_c, **times), state
+
+
+
+# ---------------------------------------------------------------------------
+# distributed phase: p ranks over gloo, all on the one card
+# ---------------------------------------------------------------------------
+
+DIST_P = 4
+DIST_NV = 16
+RANK_TIMEOUT_S = 600
+
+
+def _dist_rank(rank: int, p: int, init: str, out_dir: str, dshape, d, x,
+               target_ranks, device: str = "cuda") -> None:
+    """One rank of the distributed phase (a spawned process).  ``d`` and
+    ``x`` are the rank's shard, CUDA tensors shared by the parent over
+    CUDA IPC.  Writes its results to ``out_dir/rank<r>.pt``."""
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.comm import Comm
+    from repro_torch.core.dist import make_dist_compress, make_dist_matvec
+    from repro_torch.kernels import ops
+    from repro_torch.obs.trace import phase_times
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    on_card = device == "cuda"
+    if on_card:
+        torch.cuda.set_device(0)
+        torch.cuda.reset_peak_memory_stats()
+    dist.init_process_group("gloo", init_method=init, rank=rank,
+                            world_size=p)
+    comm = Comm()
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    res = {"backend": comm.backend, "host_staged": comm.host_staged}
+    mv = make_dist_matvec(dshape, comm, "halo-plan", backend="cuda")
+
+    # the path: counts set to 0 just before, read just after
+    ops.reset_launch_counts()
+    comm.reset_counts()
+    y = mv(d, x)
+    sync()
+    res["launches_per_hgemv"] = ops.launch_counts()
+    res["recv_bytes"] = comm.recv_bytes
+    res["staged_bytes"] = comm.staged_bytes
+    y_plain = make_dist_matvec(dshape, comm, "halo-plan", backend="torch")(
+        d, x)
+    res["bitwise_vs_torch"] = bool(torch.equal(y, y_plain))
+    comm.reset_counts()
+    y_ag = make_dist_matvec(dshape, comm, "allgather")(d, x)
+    sync()
+    res["recv_bytes_allgather"] = comm.recv_bytes
+    res["rel_allgather"] = ((y_ag - y).norm() / y.norm()).item()
+
+    comm.barrier()
+    sync()
+    t0 = time.perf_counter()
+    cd = make_dist_compress(dshape, comm, target_ranks, backend="cuda")(d)
+    sync()
+    comm.barrier()
+    res["compress_s"] = time.perf_counter() - t0
+    cshape = dataclasses.replace(dshape, ranks=tuple(target_ranks))
+    mv_c = make_dist_matvec(cshape, comm, "halo-plan", backend="cuda")
+    y_c = mv_c(cd, x)
+    sync()
+    res["launches_path"] = ops.launch_counts()
+
+    def timed(fn, dd, reps=15, warm=3):
+        ts = []
+        for i in range(reps + warm):
+            comm.barrier()
+            sync()
+            t = time.perf_counter()
+            fn(dd, x)
+            sync()
+            comm.barrier()
+            if i >= warm:
+                ts.append((time.perf_counter() - t) * 1e3)
+        return statistics.median(ts)
+
+    res["hgemv_ms"] = timed(mv, d)
+    res["hgemv_plain_ms"] = timed(
+        make_dist_matvec(dshape, comm, "halo-plan", backend="torch"), d)
+    res["hgemv_allgather_ms"] = timed(
+        make_dist_matvec(dshape, comm, "allgather"), d)
+    res["hgemv_compressed_ms"] = timed(mv_c, cd)
+    n_ph = 5
+    comm.barrier()
+    t = time.perf_counter()
+    with phase_times(sync) as pt:
+        for _ in range(n_ph):
+            mv(d, x)
+    res["phase_timed_call_ms"] = (time.perf_counter() - t) * 1e3 / n_ph
+    res["phase_ms"] = {k: v / n_ph for k, v in pt.items()}
+    res["max_memory_allocated"] = torch.cuda.max_memory_allocated() \
+        if on_card else 0
+    res["y"] = y.cpu()
+    res["y_c"] = y_c.cpu()
+    torch.save(res, f"{out_dir}/rank{rank}.pt")
+    comm.barrier()
+    dist.destroy_process_group()
+
+
+def halo_pack_timed(torch, timer, dshape, ddata, results: dict) -> None:
+    """Time ``halo_pack`` at the distributed phase's largest launch (rank
+    0's send list, random rows of the level's width)."""
+    from repro_torch.kernels import halo_pack as khp
+    from repro_torch.kernels import ref
+    cands = [(cap * dshape.ranks[l] * DIST_NV, dshape.nodes_local(l),
+              dshape.ranks[l], ddata.hp_br[l - dshape.lc].send[j][:cap],
+              f"level {l} offset {delta}")
+             for l in range(dshape.lc + 1, dshape.depth + 1)
+             if dshape.ranks[l]
+             for j, (delta, cap) in enumerate(zip(
+                 dshape.br_offsets[l - dshape.lc],
+                 dshape.br_caps[l - dshape.lc]))]
+    cands += [(cap * dshape.leaf_size * DIST_NV, dshape.leaves_per_dev,
+               dshape.leaf_size, ddata.hp_dense.send[j][:cap],
+               f"dense offset {delta}")
+              for j, (delta, cap) in enumerate(zip(dshape.dense_offsets,
+                                                   dshape.dense_caps))]
+    _, n, k, idx, what = max(cands, key=lambda c: c[0])
+    x = torch.randn(n, k, DIST_NV, generator=torch.Generator().manual_seed(5)
+                    ).cuda()
+    got = khp.halo_pack(x, idx)
+    want = ref.halo_pack(x, idx)
+    require(torch.equal(got, want), f"halo_pack at {what} differs")
+    cap = idx.shape[0]
+    bnd, by = bound_ms(2.0 * cap * k * DIST_NV * 4 + 4 * cap, 0.0)
+    r = results["halo_pack"]
+    r.update(bound_ms=bnd, bound_by=by,
+             max_abs_err=max(r["max_abs_err"],
+                             (got - want).abs().max().item()),
+             ms=timer.ms(lambda: khp.halo_pack(x, idx), reps=50),
+             plain_ms=timer.ms(lambda: ref.halo_pack(x, idx), reps=50),
+             library_ms=timer.ms(lambda: torch.index_select(x, 0, idx),
+                                 reps=50))
+    log(f"[kernel] halo_pack timed at the largest launch ({what}: cap={cap}, "
+        f"rows [{k},{DIST_NV}], {cap * k * DIST_NV * 4} bytes): equal to "
+        f"index_select; ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+        f"library_ms={r['library_ms']:.4f} bound_ms={bnd:.5f} ({by})")
+
+
+def expected_packs(dshape) -> int:
+    """halo_pack launches of one halo-plan HGEMV, from the shape: one per
+    (branch level below the C-level, offset) and per dense offset."""
+    return sum(len(dshape.br_offsets[l - dshape.lc])
+               for l in range(dshape.lc + 1, dshape.depth + 1)
+               if dshape.ranks[l]) + len(dshape.dense_offsets)
+
+
+def dist_phase(torch, timer, state: dict, results: dict,
+               device: str = "cuda") -> dict:
+    """Partition the main path's operator over ``DIST_P`` ranks on the card
+    and run the distributed HGEMV and compress in ``DIST_P`` spawned
+    processes over gloo, all sharing the card and the partition (CUDA
+    IPC).  Checks every rank's rows against the single-device HGEMV.
+    ``device="cpu"`` rehearses the phase without a card (no kernel runs,
+    so the launch checks fail there)."""
+    import tempfile
+    from repro_torch.core.dist import local_shard, matvec_comm_bytes, \
+        partition_h2
+
+    t_phase = time.perf_counter()
+    shape, data, x, y = state["shape"], state["data"], state["x"], state["y"]
+    on_card = device == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    sync()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    dshape, ddata = partition_h2(shape, data, DIST_P, device=device)
+    sync()
+    t_part = time.perf_counter() - t0
+    log(f"[dist] partition_h2 p={DIST_P}: {t_part:.3f} s; caps per level "
+        f"{dshape.br_caps}, dense caps {dshape.dense_caps}, radius "
+        f"{dshape.br_radius}/{dshape.dense_radius}")
+    if on_card:
+        halo_pack_timed(torch, timer, dshape, ddata, results)
+
+    nloc = dshape.n_local()
+    ctx = torch.multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory() as tmp:
+        init = f"file://{tmp}/rendezvous"
+        procs = [ctx.Process(target=_dist_rank, args=(
+            r, DIST_P, init, tmp, dshape, local_shard(dshape, ddata, r),
+            x[r * nloc:(r + 1) * nloc], tuple(state["ranks"]), device))
+            for r in range(DIST_P)]
+        t0 = time.perf_counter()
+        for pr in procs:
+            pr.start()
+        try:
+            for pr in procs:
+                pr.join(max(1.0, RANK_TIMEOUT_S -
+                            (time.perf_counter() - t0)))
+        finally:
+            hung = [pr for pr in procs if pr.is_alive()]
+            for pr in hung:
+                pr.terminate()
+                pr.join()
+        require(not hung, f"{len(hung)} rank(s) did not finish within "
+                f"{RANK_TIMEOUT_S} s")
+        codes = [pr.exitcode for pr in procs]
+        require(codes == [0] * DIST_P, f"rank exit codes {codes}")
+        ranks = [torch.load(f"{tmp}/rank{r}.pt", weights_only=False)
+                 for r in range(DIST_P)]
+    t_ranks = time.perf_counter() - t0
+    del procs, ddata                 # the ranks are gone: free the shares
+    if on_card:
+        torch.cuda.ipc_collect()
+    parent_peak = torch.cuda.max_memory_allocated() if on_card else 0
+
+    r0 = ranks[0]
+    log(f"[dist] transport: {r0['backend']}, host staging "
+        f"{'on' if r0['host_staged'] else 'off'} (one card: NCCL refuses "
+        f"two ranks on one device)")
+    want_packs = expected_packs(dshape)
+    model = matvec_comm_bytes(dshape, DIST_NV, "halo-plan")
+    model_ag = matvec_comm_bytes(dshape, DIST_NV, "allgather")
+    worst, worst_c = 0.0, 0.0
+    for r, res in enumerate(ranks):
+        rows = slice(r * nloc, (r + 1) * nloc)
+        yr = res["y"].to(y.device)
+        require(bool(torch.isfinite(yr).all()) and
+                yr.shape == (nloc, DIST_NV), f"rank {r} output")
+        rel = ((yr - y[rows]).norm() / y[rows].norm()).item()
+        rel_c = ((res["y_c"].to(y.device) - yr).norm() / yr.norm()).item()
+        worst, worst_c = max(worst, rel), max(worst_c, rel_c)
+        packs = res["launches_per_hgemv"]["halo_pack"]
+        log(f"[dist] rank {r}: vs single-device h2_matvec rows {rel:.3e} "
+            f"(tol 1e-5); cuda vs torch backend bitwise "
+            f"{res['bitwise_vs_torch']}; allgather vs halo-plan "
+            f"{res['rel_allgather']:.3e}; compressed vs uncompressed "
+            f"{rel_c:.3e} (tol 5e-3); halo_pack launches per HGEMV {packs} "
+            f"(from dshape {want_packs}); received {res['recv_bytes']} "
+            f"bytes (model {model}), gloo host staging "
+            f"{res['staged_bytes']} bytes; allgather received "
+            f"{res['recv_bytes_allgather']} (model {model_ag})")
+        require(rel <= 1e-5, f"rank {r} distributed HGEMV {rel:.3e}")
+        require(res["bitwise_vs_torch"], f"rank {r} cuda vs torch differ")
+        require(rel_c <= 5e-3, f"rank {r} compressed {rel_c:.3e}")
+        require(packs == want_packs and packs > 0,
+                f"rank {r} halo_pack launches {packs} != {want_packs}")
+        require(res["recv_bytes"] == model,
+                f"rank {r} received {res['recv_bytes']} != model {model}")
+    launches = {k: sum(res["launches_path"][k] for res in ranks)
+                for k in r0["launches_path"]}
+    keys = ("hgemv_ms", "hgemv_plain_ms", "hgemv_allgather_ms",
+            "hgemv_compressed_ms", "compress_s")
+    times = {k: statistics.median(res[k] for res in ranks) for k in keys}
+    log(f"[dist] median warm distributed HGEMV nv={DIST_NV}, p={DIST_P} "
+        f"(host clock, barrier + synchronize around each call; median over "
+        f"ranks): " + ", ".join(f"{k}={v:.3f}" for k, v in times.items()))
+    phases = {k: statistics.median(res["phase_ms"].get(k, 0.0)
+                                   for res in ranks)
+              for k in sorted(r0["phase_ms"])}
+    timed_call = statistics.median(res["phase_timed_call_ms"]
+                                   for res in ranks)
+    log("[dist] per-phase ms of one halo-plan HGEMV (synchronize at each "
+        "phase boundary; nested phases overlap): " +
+        ", ".join(f"{k}={v:.3f}" for k, v in phases.items()) +
+        f"; the call itself took {timed_call:.3f} ms with phase timing on")
+    peak_ranks = max(res["max_memory_allocated"] for res in ranks)
+    log(f"[dist] launches over the distributed path (all ranks): {launches}")
+    log(f"[memory] distributed phase: parent max_memory_allocated "
+        f"{parent_peak} bytes (operator + partition), largest rank "
+        f"{peak_ranks} bytes")
+    t_phase = time.perf_counter() - t_phase
+    log(f"[dist] phase took {t_phase:.1f} s (partition {t_part:.1f} s, "
+        f"ranks {t_ranks:.1f} s)")
+    return dict(launches=launches, rel_single=worst, rel_compressed=worst_c,
+                packs_per_hgemv=want_packs, recv_bytes=r0["recv_bytes"],
+                staged_bytes=r0["staged_bytes"], phase_ms=phases,
+                phase_timed_call_ms=timed_call,
+                partition_s=t_part, phase_s=t_phase, **times)
 
 
 def main() -> int:
@@ -508,24 +872,36 @@ def main() -> int:
     results: dict = {}
     kernel_phase(torch, timer, results)
     torch.cuda.reset_peak_memory_stats()
-    main = main_path(torch, args.log2n)
+    main, state = main_path(torch, args.log2n)
     for name, n in main["launches"].items():
         log(f"[kernels] {name}: {n} launches on the main path")
-        require(n > 0, f"{name} was not launched on the main path")
+    for name in ("batched_gemm", "coupling_mv", "batched_qr", "batched_svd"):
+        require(main["launches"][name] > 0,
+                f"{name} was not launched on the main path")
     log(f"[memory] max_memory_allocated {torch.cuda.max_memory_allocated()}"
         f" bytes")
+    dist = dist_phase(torch, timer, state, results)
+    del state
+    for name, n in dist["launches"].items():
+        log(f"[kernels] {name}: {n} launches on the distributed path")
+    for name in ("halo_pack", "batched_qr", "batched_svd"):
+        require(dist["launches"][name] > 0,
+                f"{name} was not launched on the distributed path")
     kernels = []
-    for name in ("batched_gemm", "coupling_mv", "batched_qr", "batched_svd"):
-        r = results.get(name, {})
+    for name in KERNELS:
+        r = results[name]
         kernels.append(dict(
             name=name, route="cuda",
             source=f"src/repro_torch/csrc/{name}.cu",
-            replaces=REPLACES[name], launches=main["launches"][name],
-            max_abs_err=r.get("max_abs_err"), ms=r.get("ms"),
-            plain_ms=r.get("plain_ms"), bound_ms=r.get("bound_ms"),
-            bound_by=r.get("bound_by"), library_ms=r.get("library_ms")))
+            replaces=REPLACES[name],
+            launches=main["launches"][name] + dist["launches"][name],
+            max_abs_err=r["max_abs_err"], ms=r["ms"],
+            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=r["library_ms"]))
     summary = {k: v for k, v in main.items() if k != "launches"}
-    log(json.dumps({"main_path": summary, "card": smi}))
+    dsummary = {k: v for k, v in dist.items() if k != "launches"}
+    log(json.dumps({"main_path": summary, "distributed": dsummary,
+                    "card": smi}))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

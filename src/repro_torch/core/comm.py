@@ -1,0 +1,160 @@
+"""Collectives of the distributed H^2 operations over ``torch.distributed``.
+
+The port's counterpart of ``shard_map``'s collectives: ``Comm`` wraps one
+process group and offers the three the distributed HGEMV and
+recompression use -- a tiled ``all_gather`` (``lax.all_gather(...,
+tiled=True)``), ``ppermute`` (``lax.ppermute``) and ``all_to_all`` on the
+``[p, capmax]`` row layout (``lax.all_to_all``, split and concat on axis
+0) -- each also in an async form that returns a ``Pending`` handle, so the
+§4.2 schedule can issue every exchange, compute, and only then wait.
+``rank`` is the counterpart of ``lax.axis_index``.
+
+The transport is chosen once, from the group's backend:
+
+- ``nccl`` moves device tensors as they are;
+- ``gloo`` moves host tensors, so a CUDA payload is copied to a pinned host
+  buffer before the collective and back to the card after it
+  (``staged_bytes`` counts both copies).  On one card the distributed
+  phase runs on gloo: NCCL refuses two ranks on one device.
+
+``recv_bytes`` counts the bytes each collective brought to this rank over
+the wire (a rank's own slice of a gather or all-to-all is not counted),
+the quantity ``dist.matvec_comm_bytes`` models.
+"""
+from __future__ import annotations
+
+import warnings
+from typing import Callable, List, Optional, Sequence, Tuple
+
+import torch
+import torch.distributed as dist
+
+
+class Pending:
+    """An issued collective; ``wait()`` returns the landed tensor on the
+    payload's device."""
+
+    def __init__(self, works: List, landed: torch.Tensor,
+                 finish: Callable[[torch.Tensor], torch.Tensor],
+                 sent: Optional[torch.Tensor] = None):
+        self._works = works
+        self._landed = landed
+        self._finish = finish
+        self._sent = sent          # the send buffer lives until the wait
+
+    def wait(self) -> torch.Tensor:
+        for w in self._works:
+            w.wait()
+        return self._finish(self._landed)
+
+
+class Comm:
+    """One process group: ``rank``, ``p`` and byte-counted collectives."""
+
+    def __init__(self, group: Optional[dist.ProcessGroup] = None):
+        self.group = group if group is not None else dist.group.WORLD
+        self.rank = dist.get_rank(self.group)
+        self.p = dist.get_world_size(self.group)
+        self.backend = str(dist.get_backend(self.group))
+        if self.backend not in ("gloo", "nccl"):
+            raise ValueError(f"unsupported process-group backend "
+                             f"{self.backend!r}")
+        self.host_staged = self.backend == "gloo"
+        self.recv_bytes = 0
+        self.staged_bytes = 0
+
+    def reset_counts(self) -> None:
+        self.recv_bytes = 0
+        self.staged_bytes = 0
+
+    # -- transport -------------------------------------------------------
+
+    def _wire(self, t: torch.Tensor) -> torch.Tensor:
+        """The tensor the backend moves: a pinned host copy of a CUDA
+        payload under gloo, the payload itself otherwise."""
+        if self.host_staged and t.is_cuda:
+            host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            host.copy_(t)
+            self.staged_bytes += t.numel() * t.element_size()
+            return host
+        return t.contiguous()
+
+    def _empty_wire(self, shape: Tuple[int, ...], like: torch.Tensor
+                    ) -> torch.Tensor:
+        if self.host_staged and like.is_cuda:
+            return torch.empty(shape, dtype=like.dtype, pin_memory=True)
+        return torch.empty(shape, dtype=like.dtype, device=like.device)
+
+    def _finisher(self, like: torch.Tensor
+                  ) -> Callable[[torch.Tensor], torch.Tensor]:
+        if self.host_staged and like.is_cuda:
+            def back(t: torch.Tensor) -> torch.Tensor:
+                self.staged_bytes += t.numel() * t.element_size()
+                return t.to(like.device)
+            return back
+        return lambda t: t
+
+    # -- collectives -------------------------------------------------------
+
+    def all_gather_async(self, x: torch.Tensor) -> Pending:
+        """Tiled gather along axis 0: ``[n, ...] -> [p*n, ...]``, rank
+        order."""
+        src = self._wire(x)
+        out = self._empty_wire((self.p * x.shape[0], *x.shape[1:]), x)
+        with warnings.catch_warnings():
+            # torch >= 2.13 names it all_gather_single; the card's 2.11
+            # has only this name
+            warnings.simplefilter("ignore", FutureWarning)
+            work = dist.all_gather_into_tensor(out, src, group=self.group,
+                                               async_op=True)
+        self.recv_bytes += (self.p - 1) * x.numel() * x.element_size()
+        return Pending([work], out, self._finisher(x), src)
+
+    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        return self.all_gather_async(x).wait()
+
+    def ppermute_async(self, x: torch.Tensor,
+                       perm: Sequence[Tuple[int, int]], tag: int = 0
+                       ) -> Pending:
+        """``lax.ppermute``: rank ``src`` of each ``(src, dst)`` pair sends
+        ``x`` to ``dst``; a rank that no pair sends to receives zeros.
+        ``tag`` tells apart permutes in flight between the same pair."""
+        dst = [d for s, d in perm if s == self.rank]
+        src = [s for s, d in perm if d == self.rank]
+        out = self._empty_wire(tuple(x.shape), x)
+        if not src:
+            out.zero_()
+        sent = self._wire(x) if dst else None
+        ops = []
+        if dst:
+            ops.append(dist.P2POp(dist.isend, sent, dst[0],
+                                  group=self.group, tag=tag))
+        if src:
+            ops.append(dist.P2POp(dist.irecv, out, src[0], group=self.group,
+                                  tag=tag))
+            self.recv_bytes += x.numel() * x.element_size()
+        works = dist.batch_isend_irecv(ops) if ops else []
+        return Pending(works, out, self._finisher(x), sent)
+
+    def ppermute(self, x: torch.Tensor, perm: Sequence[Tuple[int, int]],
+                 tag: int = 0) -> torch.Tensor:
+        return self.ppermute_async(x, perm, tag).wait()
+
+    def all_to_all_async(self, buf: torch.Tensor) -> Pending:
+        """``[p, capmax]`` rows: row ``q`` goes to rank ``q``; landed row
+        ``s`` came from rank ``s``."""
+        if buf.shape[0] != self.p:
+            raise ValueError(f"all_to_all buffer has {buf.shape[0]} rows, "
+                             f"group has {self.p} ranks")
+        src = self._wire(buf)
+        out = self._empty_wire(tuple(buf.shape), buf)
+        work = dist.all_to_all_single(out, src, group=self.group,
+                                      async_op=True)
+        self.recv_bytes += (self.p - 1) * buf[0].numel() * buf.element_size()
+        return Pending([work], out, self._finisher(buf), src)
+
+    def all_to_all(self, buf: torch.Tensor) -> torch.Tensor:
+        return self.all_to_all_async(buf).wait()
+
+    def barrier(self) -> None:
+        dist.barrier(group=self.group)

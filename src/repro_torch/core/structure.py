@@ -380,3 +380,50 @@ def data_from_numpy(arrays: Dict[str, np.ndarray], device="cuda") -> H2Data:
     if data.s_mar is None or data.dense_mar is None:
         data = remarshal(data, dense=data.dense_mar is None)
     return data
+
+
+def dist_data_from_numpy(arrays: Dict[str, np.ndarray], device="cuda"):
+    """A ``dist.DistH2Data`` on ``device`` from the flat dict of a
+    partitioned operator (for instance the reference's ``partition_h2``
+    output as numpy), so the distributed path can run on exactly that
+    partition.
+
+    Keys: ``<field>`` for a tensor field, ``<field>/<i>`` for a list
+    field, ``<plan>/<name>`` and ``<plan>/send/<j>`` for a halo plan, and
+    ``hp_br/<i>/<name>``, ``hp_br/<i>/send/<j>`` for the branch plans.
+    Without ``v_leaf``/``f_br/<i>``/``f_top/<l>`` keys the V tree aliases
+    the U tree.
+    """
+    from .dist import DistH2Data
+    from .halo import PLAN_FIELDS, HaloPlan
+
+    def t(key):
+        return torch.tensor(np.asarray(arrays[key]), device=device)
+
+    def listed(name):
+        n = sum(1 for k in arrays if k.startswith(name + "/") and
+                k.count("/") == 1)
+        return [t(f"{name}/{i}") for i in range(n)]
+
+    def plan(prefix):
+        n = sum(1 for k in arrays if k.startswith(prefix + "/send/"))
+        return HaloPlan(send=[t(f"{prefix}/send/{j}") for j in range(n)],
+                        **{f: t(f"{prefix}/{f}") for f in PLAN_FIELDS})
+
+    n_br = sum(1 for k in arrays if k.startswith("hp_br/") and
+               k.endswith("/comb_idx"))
+    fields = {}
+    for f in dataclasses.fields(DistH2Data):
+        if f.name == "hp_br":
+            fields[f.name] = [plan(f"hp_br/{i}") for i in range(n_br)]
+        elif f.name == "hp_dense":
+            fields[f.name] = plan("hp_dense")
+        elif f.name in arrays:
+            fields[f.name] = t(f.name)
+        elif f.name not in ("v_leaf", "f_br", "f_top"):
+            fields[f.name] = listed(f.name)
+    fields["v_leaf"] = t("v_leaf") if "v_leaf" in arrays else \
+        fields["u_leaf"]
+    for f, e in (("f_br", "e_br"), ("f_top", "e_top")):
+        fields[f] = listed(f) if f"{f}/0" in arrays else list(fields[e])
+    return DistH2Data(**fields)

@@ -17,7 +17,8 @@ from pathlib import Path
 from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-KERNELS = ("batched_gemm", "coupling_mv", "batched_qr", "batched_svd")
+KERNELS = ("batched_gemm", "coupling_mv", "batched_qr", "batched_svd",
+           "halo_pack")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

@@ -8,7 +8,7 @@ counterpart of the reference's ``"jnp"``).
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -16,11 +16,12 @@ from . import batched_gemm as _bg
 from . import batched_qr as _bq
 from . import batched_svd as _bs
 from . import coupling_mv as _cm
+from . import halo_pack as _hp
 from . import ref
 
 BACKENDS = ("cuda", "torch")
 _KERNEL_MODULES = {"batched_gemm": _bg, "coupling_mv": _cm,
-                   "batched_qr": _bq, "batched_svd": _bs}
+                   "batched_qr": _bq, "batched_svd": _bs, "halo_pack": _hp}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -86,3 +87,12 @@ def backend_svd(a: torch.Tensor, backend: str = "cuda"
         return (a.new_zeros((nb, n, kn)), a.new_zeros((nb, kn)),
                 a.new_zeros((nb, kn, k)))
     return ref.batched_svd(a)
+
+
+def halo_pack(x: torch.Tensor, idx: torch.Tensor, backend: str = "cuda",
+              out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Pack the planned send rows ``x[idx]`` (into ``out`` when given)."""
+    if use_kernel(x, backend):
+        return _hp.halo_pack(x, idx, out=out)
+    y = ref.halo_pack(x, idx)
+    return y if out is None else out.copy_(y)

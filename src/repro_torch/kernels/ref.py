@@ -41,3 +41,8 @@ def coupling_mv(s: torch.Tensor, x: torch.Tensor, blk: torch.Tensor,
                         )[None, :] < cnt[:, None]
     prod = prod.reshape(rows, maxb, k1, x.shape[-1]) * mask[:, :, None, None]
     return prod.sum(dim=1)
+
+
+def halo_pack(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Gather of the planned send rows, ``y[i] = x[idx[i]]``."""
+    return x.index_select(0, idx)

@@ -16,6 +16,7 @@ from repro_torch.kernels import batched_gemm as kbg
 from repro_torch.kernels import batched_qr as kbq
 from repro_torch.kernels import batched_svd as kbs
 from repro_torch.kernels import coupling_mv as kcm
+from repro_torch.kernels import halo_pack as khp
 from repro_torch.kernels import ops, ref
 
 torch.set_num_threads(2)
@@ -265,7 +266,8 @@ def test_unknown_backend_raises():
                          backend="pallas")
 
 
-@pytest.mark.parametrize("call", ["gemm", "coupling", "qr", "qr_r", "svd"])
+@pytest.mark.parametrize("call", ["gemm", "coupling", "qr", "qr_r", "svd",
+                                  "halo_pack"])
 def test_kernel_wrappers_refuse_cpu_tensors(call):
     """A kernel wrapper launches on the card or raises; it never computes
     on the CPU itself (that choice belongs to ``ops``)."""
@@ -275,7 +277,8 @@ def test_kernel_wrappers_refuse_cpu_tensors(call):
           "coupling": lambda: kcm.coupling_mv(a, a, i, i, i, maxb=1),
           "qr": lambda: kbq.batched_qr(a),
           "qr_r": lambda: kbq.batched_qr_r(a),
-          "svd": lambda: kbs.batched_svd(a)}[call]
+          "svd": lambda: kbs.batched_svd(a),
+          "halo_pack": lambda: khp.halo_pack(a, i)}[call]
     before = ops.launch_counts()
     with pytest.raises(ValueError, match="CUDA"):
         fn()
@@ -286,7 +289,8 @@ def test_launch_counter_reset():
     ops.reset_launch_counts()
     assert set(ops.launch_counts().values()) == {0}
     assert sorted(ops.launch_counts()) == sorted(
-        ["batched_gemm", "coupling_mv", "batched_qr", "batched_svd"])
+        ["batched_gemm", "coupling_mv", "batched_qr", "batched_svd",
+         "halo_pack"])
 
 
 # ---------------------------------------------------------------------------
@@ -352,3 +356,27 @@ def test_cuda_svd_matches_plain(cuda, name):
     u, s, vt = kbs.batched_svd(at)
     s0 = ref.batched_svd(at)[1]
     _svd_checks(a, u.cpu(), s.cpu(), vt.cpu(), s0.cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k,nv,cap", [(300, 36, 16, 130), (64, 64, 16, 40),
+                                        (50, 7, 3, 17), (20, 5, 1, 9),
+                                        (10, 4, 4, 0)])
+def test_cuda_halo_pack_matches_plain(cuda, n, k, nv, cap):
+    """Bitwise equal to ``index_select`` (a copy), with repeated padding
+    indices, odd row lengths, and into an ``out=`` slice of a larger
+    buffer whose other bytes stay untouched."""
+    rng = np.random.default_rng(n + k + nv + cap)
+    x = torch.as_tensor(_rand(rng, n, k, nv)).to(cuda)
+    idx = rng.integers(0, n, cap).astype(np.int32)
+    idx[cap // 2:] = 0                           # padding repeats row 0
+    idx = torch.as_tensor(idx).to(cuda)
+    before = khp.LAUNCHES
+    got = khp.halo_pack(x, idx)
+    assert khp.LAUNCHES == before + (cap > 0)
+    assert torch.equal(got, ref.halo_pack(x, idx))
+    flat = torch.full((cap * k * nv + 7,), -1.0, device=cuda)
+    out = flat[3:3 + cap * k * nv].view(cap, k, nv)
+    khp.halo_pack(x, idx, out=out)
+    assert torch.equal(out, ref.halo_pack(x, idx))
+    assert (flat[:3] == -1).all() and (flat[3 + cap * k * nv:] == -1).all()

@@ -70,12 +70,13 @@ def test_slice_matches_reference(side, leaf, p, backend):
 def test_entry_points_default_to_the_card():
     """Every entry point defaults to device="cuda" / backend="cuda"."""
     import inspect
-    from repro_torch.core import compression, construction, matvec
+    from repro_torch.core import compression, construction, dist, matvec
     from repro_torch.core import orthogonalize
-    assert inspect.signature(construction.construct_h2
-                             ).parameters["device"].default == "cuda"
+    for fn in (construction.construct_h2, dist.partition_h2):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
     for fn in (matvec.h2_matvec, orthogonalize.orthogonalize,
-               compression.compress):
+               compression.compress, dist.make_dist_matvec,
+               dist.make_dist_compress):
         assert inspect.signature(fn).parameters["backend"].default == "cuda"
 
 
@@ -91,11 +92,11 @@ def test_port_imports_neither_jax_nor_repro():
         "    importlib.import_module(n)\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
-        "assert len(names) >= 17, names\n"
+        "assert len(names) >= 25, names\n"
         "assert not bad, bad\n"
         "print(len(names))\n")
     env = dict(os.environ, PYTHONPATH=str(SRC))
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 17
+    assert int(out.stdout.strip()) >= 25
