@@ -7,17 +7,22 @@
 In order: the card's name and power limit; the build of the five CUDA
 kernels from ``src/repro_torch/csrc``; each kernel against its plain PyTorch
 version at the main path's shapes and at edge cases, with its time, the
-plain version's time, a library call's time and the roofline bound; then the
+plain version's time, a library call's time and the roofline bound
+(``batched_gemm`` at every HGEMV shape beside ``torch.bmm``, with the path
+its planner chose and its host time per call; ``halo_pack`` as rank 0's
+whole exchange in one launch, once the partition exists); then the
 main path at N = 2^20 (2D exponential kernel, l = 0.1, leaf 64, Chebyshev
 p = 6, eta = 0.9): ``construct_h2`` -> ``h2_matvec`` -> ``compress(tol=1e-3)``
 -> ``h2_matvec``, held to the plain backend on the card, to exact kernel rows
-computed in float64, and the compressed product to the uncompressed one;
+computed in float64, and the compressed product to the uncompressed one
+(compress timed cold, then warm);
 then the distributed path: ``partition_h2`` of that operator over 4 ranks,
 and 4 spawned processes in a gloo group sharing the card (payloads staged
 through pinned host memory) that run the halo-plan distributed HGEMV
 (``halo_pack`` packs every exchange), its plain twin, the allgather
 baseline, ``make_dist_compress`` to the main path's ranks and the
-compressed distributed HGEMV, each rank held to the single-device rows.
+compressed distributed HGEMV, each rank held to the single-device rows
+(each rank gets its shard through a queue and releases it before exit).
 Launch counts are reset just before each path and read just after.
 Any failure raises; the last line is the device JSON only on success.
 It needs a CUDA card: without one it exits non-zero and prints no result.
@@ -26,6 +31,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -201,6 +207,77 @@ def halo_pack_cases(torch, rnd) -> float:
     return worst
 
 
+def gemm_shapes(torch, v, x, rnd) -> list:
+    """(name, a, b) of the HGEMV's batched_gemm shapes at N = 2^20: the
+    leaf ``V^T x`` (A a transposed view of the leaf bases), the leaf ``U``,
+    the level-14 transfers (``F^T`` a view, ``E``), and the compressed
+    leaf ``V^T x`` (rank 3)."""
+    nl, m, k = v.shape
+    f = rnd(nl, k, k)
+    return [("leaf V^T x", v.transpose(-1, -2), x),
+            ("leaf U", v, rnd(nl, k, x.shape[-1])),
+            ("transfer F^T l=14", f.transpose(-1, -2), rnd(nl, k, 16)),
+            ("transfer E l=14", f, rnd(nl, k, 16)),
+            ("compressed leaf V^T x", rnd(nl, m, 3).transpose(-1, -2), x)]
+
+
+def host_us(torch, fn, calls: int = 200) -> float:
+    """Host time of one call, microseconds: ``calls`` calls back to back
+    without a synchronize (the card runs behind), after a warm-up."""
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def gemm_timings(torch, timer, shapes, rnd) -> dict:
+    """``batched_gemm`` at each HGEMV shape beside its bound and
+    ``torch.bmm``, with the path ``plan_launch`` chose, and the wrapper's
+    host time per call beside ``torch.bmm``'s at a level-1 transfer
+    ([2,36,36]x[2,36,16], where the card's part is negligible).  Returns
+    the JSON row's numbers (the leaf ``V^T x``) and the table."""
+    from repro_torch.kernels import batched_gemm as kbg
+    from repro_torch.kernels import ref
+    table = []
+    for name, a, b in shapes:
+        got, want = kbg.batched_gemm(a, b), ref.batched_gemm(a, b)
+        _, rel = rel_err(got, want)
+        require(rel <= TOL["batched_gemm"],
+                f"batched_gemm {name}: rel err {rel:.3e}")
+        nb, m, k = a.shape
+        n = b.shape[2]
+        bnd, by = bound_ms(4.0 * nb * (m * k + k * n + m * n),
+                           2.0 * nb * m * k * n)
+        row = dict(name=name, shape=f"[{nb},{m},{k}]x[{nb},{k},{n}]",
+                   plan=kbg.plan_launch(a, b), rel_err=rel,
+                   ms=timer.ms(lambda: kbg.batched_gemm(a, b)),
+                   library_ms=timer.ms(lambda: torch.bmm(a, b)),
+                   plain_ms=timer.ms(lambda: ref.batched_gemm(a, b)),
+                   bound_ms=bnd, bound_by=by)
+        table.append(row)
+        log(f"[kernel] batched_gemm {name} {row['shape']} plan "
+            f"{row['plan']}: ms={row['ms']:.4f} "
+            f"torch.bmm={row['library_ms']:.4f} "
+            f"plain={row['plain_ms']:.4f} bound={bnd:.4f} ({by}); "
+            f"{row['ms'] / row['library_ms']:.2f}x bmm, "
+            f"{bnd / row['ms']:.0%} of the bound; rel err {rel:.2e}")
+    a1, b1 = rnd(2, 36, 36).transpose(-1, -2), rnd(2, 36, 16)
+    host = dict(kernel_us=host_us(torch, lambda: kbg.batched_gemm(a1, b1)),
+                bmm_us=host_us(torch, lambda: torch.bmm(a1, b1)))
+    log(f"[kernel] batched_gemm host time per call at [2,36,36]x[2,36,16] "
+        f"({kbg.plan_launch(a1, b1)}): wrapper {host['kernel_us']:.2f} us, "
+        f"torch.bmm {host['bmm_us']:.2f} us")
+    lead = table[0]
+    return dict(ms=lead["ms"], plain_ms=lead["plain_ms"],
+                library_ms=lead["library_ms"], bound_ms=lead["bound_ms"],
+                bound_by=lead["bound_by"], shapes=table, host=host)
+
+
 def kernel_phase(torch, timer, results: dict) -> None:
     from repro_torch.kernels import batched_gemm as kbg
     from repro_torch.kernels import batched_qr as kbq
@@ -220,7 +297,7 @@ def kernel_phase(torch, timer, results: dict) -> None:
         require(r <= tol, f"{name} {what}: rel err {r:.3e} > {tol}")
         return d
 
-    # ---- batched_gemm: leaf V^T x (transposed view, read by strides) ----
+    # ---- batched_gemm: the HGEMV's shapes (fast path), edge cases ----
     nl, m, k, nv = 16384, 64, 36, 16
     v = rnd(nl, m, k)
     x = rnd(nl, m, nv)
@@ -230,26 +307,30 @@ def kernel_phase(torch, timer, results: dict) -> None:
     for shp in [((8192, 36, 36), (8192, 36, 16)), ((16384, 64, 36),
                                                    (16384, 36, 16)),
                 ((7, 5, 3), (7, 3, 1)), ((3, 1, 9), (3, 9, 2)),
-                ((5, 70, 33), (5, 33, 19))]:
+                ((5, 70, 33), (5, 33, 19)), ((64, 13, 11), (64, 11, 16)),
+                ((300, 36, 36), (300, 36, 4))]:
         a2, b2 = rnd(*shp[0]), rnd(*shp[1])
         check("batched_gemm", kbg.batched_gemm(a2, b2),
-              ref.batched_gemm(a2, b2), TOL["batched_gemm"], f"{shp}")
+              ref.batched_gemm(a2, b2), TOL["batched_gemm"],
+              f"{shp} ({kbg.plan_launch(a2, b2)})")
     ft = rnd(4096, 36, 36).transpose(-1, -2)
     xh = rnd(4096, 36, 16)
     check("batched_gemm", kbg.batched_gemm(ft, xh), ref.batched_gemm(ft, xh),
           TOL["batched_gemm"], "F^T view [4096,36,36]")
+    flat = rnd(4096 * 36 * 36 + 1)[1:]             # 4 bytes off alignment
+    fu = flat.view(4096, 36, 36).transpose(-1, -2)
+    check("batched_gemm", kbg.batched_gemm(fu, xh), ref.batched_gemm(fu, xh),
+          TOL["batched_gemm"],
+          f"unaligned F^T view ({kbg.plan_launch(fu, xh)})")
     for shp in [((0, 4, 4), (0, 4, 2)), ((3, 0, 4), (3, 4, 2)),
                 ((3, 4, 0), (3, 0, 2))]:
         z = kbg.batched_gemm(rnd(*shp[0]), rnd(*shp[1]))
         require(z.shape == (shp[0][0], shp[0][1], shp[1][2]) and
                 not z.any(), "zero-size gemm must give zeros")
-    nbytes = 4 * (a.numel() + x.numel() + nl * k * nv)
-    bnd, by = bound_ms(nbytes, 2.0 * nl * k * m * nv)
-    results["batched_gemm"] = dict(
-        max_abs_err=err, bound_ms=bnd, bound_by=by,
-        ms=timer.ms(lambda: kbg.batched_gemm(a, x)),
-        plain_ms=timer.ms(lambda: ref.batched_gemm(a, x)),
-        library_ms=timer.ms(lambda: torch.bmm(a, x)))
+    shapes = gemm_shapes(torch, v, x, rnd)
+    del flat, fu
+    results["batched_gemm"] = dict(max_abs_err=err, **gemm_timings(
+        torch, timer, shapes, rnd))
 
     # ---- coupling_mv: dense leaves [81408,64,64], rows 16384, maxb 5 ----
     rows, maxb = 16384, 5
@@ -502,6 +583,20 @@ def main_path(torch, log2n: int, device: str = "cuda") -> tuple:
     yc = h2_matvec(cshape, cdata, x, backend="cuda")
     sync()
     launches = ops.launch_counts()           # the main path ends here
+
+    warm = []                                # the same call, warm
+    for _ in range(3):
+        sync()
+        t0 = time.perf_counter()
+        again = compress(shape, data, tol=1e-3, backend="cuda")
+        sync()
+        warm.append(time.perf_counter() - t0)
+        require(again[0].ranks == cshape.ranks, "warm compress ranks differ")
+        del again
+    t_compress_warm = statistics.median(warm)
+    log(f"[main] compress(tol=1e-3) cuda: first (cold) call {t_compress:.3f}"
+        f" s, median of {len(warm)} warm calls {t_compress_warm:.3f} s "
+        f"({', '.join(f'{t:.3f}' for t in warm)})")
     rel_c = ((yc - y).norm() / y.norm()).item()
     log(f"[main] compressed h2_matvec vs uncompressed: rel err {rel_c:.3e} "
         f"(tol 5e-3)")
@@ -558,7 +653,8 @@ def main_path(torch, log2n: int, device: str = "cuda") -> tuple:
     require(match, "launches per HGEMV differ from the code's count")
     state = dict(shape=shape, data=data, x=x, y=y, ranks=cshape.ranks)
     return dict(launches=launches, construct_s=t_construct,
-                compress_s=t_compress, compress_plain_s=t_compress_plain,
+                compress_s=t_compress, compress_warm_s=t_compress_warm,
+                compress_plain_s=t_compress_plain,
                 ranks=cshape.ranks, memory_ratio=ratio, rel_exact=rel_exact,
                 rel_compressed=rel_c, **times), state
 
@@ -573,26 +669,47 @@ DIST_NV = 16
 RANK_TIMEOUT_S = 600
 
 
-def _dist_rank(rank: int, p: int, init: str, out_dir: str, dshape, d, x,
+def _dist_rank(rank: int, p: int, init: str, out_dir: str, dshape, inbox,
                target_ranks, device: str = "cuda") -> None:
-    """One rank of the distributed phase (a spawned process).  ``d`` and
-    ``x`` are the rank's shard, CUDA tensors shared by the parent over
-    CUDA IPC.  Writes its results to ``out_dir/rank<r>.pt``."""
-    import dataclasses
+    """One rank of the distributed phase (a spawned process).  Its shard
+    ``(d, x)`` -- CUDA tensors shared by the parent over CUDA IPC --
+    comes through the queue ``inbox``, so that no argument of the process
+    holds a share; every reference to it is dropped before the rank exits,
+    which releases the shares.  Writes its results to
+    ``out_dir/rank<r>.pt``."""
+    import gc
     import torch
     import torch.distributed as dist
-    from repro_torch.core.comm import Comm
-    from repro_torch.core.dist import make_dist_compress, make_dist_matvec
-    from repro_torch.kernels import ops
-    from repro_torch.obs.trace import phase_times
 
-    torch.backends.cuda.matmul.allow_tf32 = False
     on_card = device == "cuda"
     if on_card:
         torch.cuda.set_device(0)
         torch.cuda.reset_peak_memory_stats()
     dist.init_process_group("gloo", init_method=init, rank=rank,
                             world_size=p)
+    res = _dist_rank_work(rank, dshape, inbox.get(), target_ranks, on_card)
+    gc.collect()                    # the shard's last references go here
+    if on_card:
+        torch.cuda.synchronize()
+    torch.save(res, f"{out_dir}/rank{rank}.pt")
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _dist_rank_work(rank: int, dshape, shard, target_ranks,
+                    on_card: bool) -> dict:
+    """The distributed phase's calls on one rank; returns its results
+    (host tensors and numbers only)."""
+    import dataclasses
+    import torch
+    from repro_torch.core.comm import Comm
+    from repro_torch.core.dist import make_dist_compress, make_dist_matvec
+    from repro_torch.kernels import ops
+    from repro_torch.obs.trace import phase_times
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    d, x = shard
+    del shard
     comm = Comm()
     sync = torch.cuda.synchronize if on_card else (lambda: None)
     res = {"backend": comm.backend, "host_staged": comm.host_staged}
@@ -659,57 +776,94 @@ def _dist_rank(rank: int, p: int, init: str, out_dir: str, dshape, d, x,
         if on_card else 0
     res["y"] = y.cpu()
     res["y_c"] = y_c.cpu()
-    torch.save(res, f"{out_dir}/rank{rank}.pt")
     comm.barrier()
-    dist.destroy_process_group()
+    return res
 
 
 def halo_pack_timed(torch, timer, dshape, ddata, results: dict) -> None:
-    """Time ``halo_pack`` at the distributed phase's largest launch (rank
-    0's send list, random rows of the level's width)."""
+    """Time ``halo_pack`` as the main path runs it: rank 0's whole
+    exchange of one distributed HGEMV in one launch, against the plain
+    route's ``index_select`` per segment into the same buffer, with the
+    bound from all segments' bytes; bitwise equal to the plain route in
+    f32 and bf16.  Also at the exchange's largest single segment against
+    ``index_select`` (the first version's per-segment launch)."""
+    from repro_torch.core.dist import _hp_pack_table, local_shard
     from repro_torch.kernels import halo_pack as khp
     from repro_torch.kernels import ref
-    cands = [(cap * dshape.ranks[l] * DIST_NV, dshape.nodes_local(l),
-              dshape.ranks[l], ddata.hp_br[l - dshape.lc].send[j][:cap],
-              f"level {l} offset {delta}")
-             for l in range(dshape.lc + 1, dshape.depth + 1)
-             if dshape.ranks[l]
-             for j, (delta, cap) in enumerate(zip(
-                 dshape.br_offsets[l - dshape.lc],
-                 dshape.br_caps[l - dshape.lc]))]
-    cands += [(cap * dshape.leaf_size * DIST_NV, dshape.leaves_per_dev,
-               dshape.leaf_size, ddata.hp_dense.send[j][:cap],
-               f"dense offset {delta}")
-              for j, (delta, cap) in enumerate(zip(dshape.dense_offsets,
-                                                   dshape.dense_caps))]
-    _, n, k, idx, what = max(cands, key=lambda c: c[0])
-    x = torch.randn(n, k, DIST_NV, generator=torch.Generator().manual_seed(5)
-                    ).cuda()
-    got = khp.halo_pack(x, idx)
-    want = ref.halo_pack(x, idx)
-    require(torch.equal(got, want), f"halo_pack at {what} differs")
-    cap = idx.shape[0]
-    bnd, by = bound_ms(2.0 * cap * k * DIST_NV * 4 + 4 * cap, 0.0)
+    d0 = local_shard(dshape, ddata, 0)
+    gen = torch.Generator().manual_seed(5)
+    hp32 = _hp_pack_table(dshape, d0, DIST_NV, 0, False, False)
+    srcs = [torch.randn(dshape.nodes_local(l), dshape.ranks[l], DIST_NV,
+                        generator=gen).cuda() for l in hp32.levels] + \
+        [torch.randn(dshape.leaves_per_dev, dshape.leaf_size, DIST_NV,
+                     generator=gen).cuda()]
+    for bf16 in (False, True):
+        hp = _hp_pack_table(dshape, d0, DIST_NV, 0, False, True) if bf16 \
+            else hp32
+        dtype = torch.bfloat16 if bf16 else torch.float32
+        got = torch.full(hp.shape, float("nan"), dtype=dtype, device="cuda")
+        want = torch.full(hp.shape, float("nan"), dtype=dtype, device="cuda")
+        before = khp.LAUNCHES
+        khp.pack_segments(hp.pack, srcs, got)
+        require(khp.LAUNCHES == before + hp.pack.launches,
+                "halo_pack launches of the whole exchange")
+        ref.halo_pack_segments(hp.pack.segments, srcs, want)
+        require(torch.equal(got, want) and not got.isnan().any(),
+                f"halo_pack whole exchange ({dtype}) differs from the "
+                f"plain route")
+    hp = hp32
+    segs = [s_ for s_ in hp.pack.segments if s_.idx.shape[0]]
+    rows = sum(s_.idx.shape[0] for s_ in segs)
+    moved = sum(2.0 * s_.idx.shape[0] * s_.row * 4 + 4 * s_.idx.shape[0]
+                for s_ in segs)
+    bnd, by = bound_ms(moved, 0.0)
+    buf = torch.empty(hp.shape, device="cuda")
     r = results["halo_pack"]
-    r.update(bound_ms=bnd, bound_by=by,
-             max_abs_err=max(r["max_abs_err"],
-                             (got - want).abs().max().item()),
-             ms=timer.ms(lambda: khp.halo_pack(x, idx), reps=50),
-             plain_ms=timer.ms(lambda: ref.halo_pack(x, idx), reps=50),
-             library_ms=timer.ms(lambda: torch.index_select(x, 0, idx),
-                                 reps=50))
-    log(f"[kernel] halo_pack timed at the largest launch ({what}: cap={cap}, "
-        f"rows [{k},{DIST_NV}], {cap * k * DIST_NV * 4} bytes): equal to "
-        f"index_select; ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
-        f"library_ms={r['library_ms']:.4f} bound_ms={bnd:.5f} ({by})")
+    r.update(
+        bound_ms=bnd, bound_by=by, library_ms=None,
+        ms=timer.ms(lambda: khp.pack_segments(hp.pack, srcs, buf), reps=50),
+        plain_ms=timer.ms(lambda: ref.halo_pack_segments(
+            hp.pack.segments, srcs, buf), reps=50),
+        segments=len(segs), rows=rows, bytes=moved,
+        host_us=host_us(torch, lambda: khp.pack_segments(hp.pack, srcs,
+                                                         buf)),
+        plain_host_us=host_us(torch, lambda: ref.halo_pack_segments(
+            hp.pack.segments, srcs, buf)))
+    log(f"[kernel] halo_pack whole exchange of rank 0 ({len(segs)} "
+        f"segments, {rows} rows, {moved / 1e6:.3f} MB moved, "
+        f"{hp.pack.launches} launch): equal to the plain route in f32 and "
+        f"bf16; ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+        f"({len(segs)} index_select) bound_ms={bnd:.5f} ({by}); host per "
+        f"call {r['host_us']:.1f} us (plain {r['plain_host_us']:.1f} us)")
+    big = max(segs, key=lambda s_: s_.idx.shape[0] * s_.row)
+    x = srcs[big.src]
+    single = khp.halo_pack(x, big.idx)
+    require(torch.equal(single, ref.halo_pack(x, big.idx)),
+            "halo_pack largest segment differs")
+    cap = big.idx.shape[0]
+    one = khp.PackPlan([khp.Segment(0, big.idx, 0, big.row)])
+    sb, _ = bound_ms(2.0 * cap * big.row * 4 + 4 * cap, 0.0)
+    r["single"] = dict(
+        cap=cap, row=list(x.shape[1:]), bound_ms=sb,
+        ms=timer.ms(lambda: khp.pack_segments(one, [x], single.view(-1)),
+                    reps=50),
+        library_ms=timer.ms(lambda: torch.index_select(x, 0, big.idx),
+                            reps=50))
+    log(f"[kernel] halo_pack largest single segment (cap={cap}, rows "
+        f"{list(x.shape[1:])}, {cap * big.row * 4} bytes): "
+        f"ms={r['single']['ms']:.4f} index_select="
+        f"{r['single']['library_ms']:.4f} bound_ms={sb:.5f}")
 
 
 def expected_packs(dshape) -> int:
-    """halo_pack launches of one halo-plan HGEMV, from the shape: one per
-    (branch level below the C-level, offset) and per dense offset."""
-    return sum(len(dshape.br_offsets[l - dshape.lc])
-               for l in range(dshape.lc + 1, dshape.depth + 1)
-               if dshape.ranks[l]) + len(dshape.dense_offsets)
+    """halo_pack launches of one halo-plan HGEMV, from the shape: one
+    launch per ``MAX_SEGMENTS`` segments of the exchange's table, a segment
+    per (branch level below the C-level, offset) and per dense offset."""
+    from repro_torch.kernels.halo_pack import MAX_SEGMENTS
+    caps = [c for l in range(dshape.lc + 1, dshape.depth + 1)
+            if dshape.ranks[l] for c in dshape.br_caps[l - dshape.lc]]
+    caps += list(dshape.dense_caps)
+    return math.ceil(sum(1 for c in caps if c) / MAX_SEGMENTS)
 
 
 def dist_phase(torch, timer, state: dict, results: dict,
@@ -745,13 +899,16 @@ def dist_phase(torch, timer, state: dict, results: dict,
     ctx = torch.multiprocessing.get_context("spawn")
     with tempfile.TemporaryDirectory() as tmp:
         init = f"file://{tmp}/rendezvous"
+        inboxes = [ctx.SimpleQueue() for _ in range(DIST_P)]
         procs = [ctx.Process(target=_dist_rank, args=(
-            r, DIST_P, init, tmp, dshape, local_shard(dshape, ddata, r),
-            x[r * nloc:(r + 1) * nloc], tuple(state["ranks"]), device))
-            for r in range(DIST_P)]
+            r, DIST_P, init, tmp, dshape, inboxes[r],
+            tuple(state["ranks"]), device)) for r in range(DIST_P)]
         t0 = time.perf_counter()
         for pr in procs:
             pr.start()
+        for r, box in enumerate(inboxes):
+            box.put((local_shard(dshape, ddata, r),
+                     x[r * nloc:(r + 1) * nloc]))
         try:
             for pr in procs:
                 pr.join(max(1.0, RANK_TIMEOUT_S -
@@ -768,7 +925,7 @@ def dist_phase(torch, timer, state: dict, results: dict,
         ranks = [torch.load(f"{tmp}/rank{r}.pt", weights_only=False)
                  for r in range(DIST_P)]
     t_ranks = time.perf_counter() - t0
-    del procs, ddata                 # the ranks are gone: free the shares
+    del procs, inboxes, ddata        # the ranks are gone: free the shares
     if on_card:
         torch.cuda.ipc_collect()
     parent_peak = torch.cuda.max_memory_allocated() if on_card else 0
@@ -900,8 +1057,14 @@ def main() -> int:
             bound_by=r["bound_by"], library_ms=r["library_ms"]))
     summary = {k: v for k, v in main.items() if k != "launches"}
     dsummary = {k: v for k, v in dist.items() if k != "launches"}
+    detail = {"batched_gemm": {k: results["batched_gemm"][k]
+                               for k in ("shapes", "host")},
+              "halo_pack": {k: v for k, v in results["halo_pack"].items()
+                            if k not in ("ms", "plain_ms", "bound_ms",
+                                         "bound_by", "library_ms",
+                                         "max_abs_err")}}
     log(json.dumps({"main_path": summary, "distributed": dsummary,
-                    "card": smi}))
+                    "kernel_detail": detail, "card": smi}))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

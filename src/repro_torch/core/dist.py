@@ -18,9 +18,9 @@ Communication modes of the off-diagonal coupling phase (paper §4.1):
   - ``ppermute``: broadcast halo -- every rank's entire level ``2*rad``
     times
   - ``halo-plan`` (default): the compressed-plan exchange (``halo.py``):
-    only the nodes remote coupling rows reference, packed by
-    ``ops.halo_pack`` and fused per neighbour offset, one permute each,
-    all issued before the diagonal products (§4.2 overlap).
+    only the nodes remote coupling rows reference, packed by one
+    ``halo_pack`` launch into one payload per neighbour offset, one
+    permute each, all issued before the diagonal products (§4.2 overlap).
     ``hide_flops > 0`` merges every offset into ONE all-to-all (the
     solver lowering).  ``-bf16`` suffixes halve the payload.
 
@@ -33,12 +33,14 @@ compression's QRs and SVDs the ``batched_qr``/``batched_svd`` kernels when
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence, Tuple
+import weakref
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.halo_pack import PackPlan, Segment
 from repro_torch.obs.trace import phase
 
 from . import halo as _halo
@@ -424,77 +426,126 @@ def _hp_merged_layout(tot: Dict[int, int], p: int):
     return max(capmax, 1), pos
 
 
+class _HpPack(NamedTuple):
+    """Host-static segment table of one rank's whole halo-plan exchange.
+
+    ``pack`` holds one segment per (branch level, offset) and per dense
+    offset; its source slots are ``levels`` (the packed branch levels, in
+    order) and then the dense leaves.  ``shape`` is the send buffer's:
+    ``(n,)`` with the per-offset payloads end to end, or the merged
+    ``(p, capmax)`` rows; ``dest[delta] = (first, length)`` is offset
+    ``delta``'s payload in the flattened buffer; ``pos`` is the merged
+    layout (``_hp_merged_layout``), None per offset."""
+    pack: PackPlan
+    levels: Tuple[int, ...]
+    shape: Tuple[int, ...]
+    dest: Dict[int, Tuple[int, int]]
+    pos: Optional[Dict[int, Tuple[int, int]]]
+
+
+def _hp_pack_table(dshape: DistH2Shape, d: DistH2Data, nv: int, rank: int,
+                   merged: bool, bf16: bool) -> _HpPack:
+    """The segment table of ``_hp_pack_exchange``: destination offsets
+    from ``_hp_payload_layout`` (and ``_hp_merged_layout`` when
+    ``merged``), index lists from the rank's halo plans."""
+    depth, lc, p = dshape.depth, dshape.lc, dshape.p
+    seg, tot = _hp_payload_layout(dshape, nv)
+    pos = None
+    if merged:
+        capmax, pos = _hp_merged_layout(tot, p)
+        shape: Tuple[int, ...] = (p, capmax)
+        base = {delta: ((rank - res) % p) * capmax + lo
+                for delta, (res, lo) in pos.items()}
+    else:
+        base, n = {}, 0
+        for delta, sz in tot.items():
+            base[delta], n = n, n + sz
+        shape = (n,)
+    levels = tuple(l for l in range(lc + 1, depth + 1)
+                   if dshape.ranks[l] and dshape.br_offsets[l - lc])
+    groups = [(slot, l, d.hp_br[l - lc], dshape.br_offsets[l - lc],
+               dshape.ranks[l]) for slot, l in enumerate(levels)]
+    groups.append((len(levels), depth + 1, d.hp_dense, dshape.dense_offsets,
+                   dshape.leaf_size))
+    segs = [Segment(slot, idx, base[delta] + seg[(key, delta)][0],
+                    width * nv)
+            for slot, key, plan, offsets, width in groups
+            for delta, idx in zip(offsets, plan.send)]
+    return _HpPack(PackPlan(segs, bf16=bf16), levels, shape,
+                   {delta: (base[delta], tot[delta]) for delta in tot}, pos)
+
+
+def _hp_pack_table_for(tables: Optional[dict], dshape: DistH2Shape,
+                       d: DistH2Data, nv: int, rank: int, merged: bool,
+                       bf16: bool) -> _HpPack:
+    """``_hp_pack_table``, kept in ``tables`` (a matvec's own cache, whose
+    shape, rank and mode are fixed: ``id(d) -> {nv: table}``) when given.
+    An entry goes when ``d`` is collected: it holds views of ``d``'s plans,
+    and the id may be reused."""
+    if tables is None:
+        return _hp_pack_table(dshape, d, nv, rank, merged, bf16)
+    per_d = tables.get(id(d))
+    if per_d is None:
+        per_d = tables[id(d)] = {}
+        weakref.finalize(d, tables.pop, id(d), None)
+    if nv not in per_d:
+        per_d[nv] = _hp_pack_table(dshape, d, nv, rank, merged, bf16)
+    return per_d[nv]
+
+
 def _hp_pack_exchange(dshape: DistH2Shape, d: DistH2Data, xhat, x_leaves,
                       comm: Comm, mode: str, backend: str = "cuda",
-                      merged: bool = False):
+                      merged: bool = False, tables: Optional[dict] = None):
     """Phase A of the §4.2 schedule: pack every level's planned send rows
-    (branch levels and dense leaves) straight into one flat payload per
-    neighbour offset and issue one permute per offset -- or, ``merged``,
-    ONE all-to-all on the ``_hp_merged_layout`` rows.  Returns a callable
-    that waits and gives the landed flat payloads ``{delta: [tot]}``.
+    (branch levels and dense leaves) straight into the send buffer -- one
+    flat payload per neighbour offset, or, ``merged``, the
+    ``_hp_merged_layout`` rows of ONE all-to-all -- in one ``halo_pack``
+    launch over the rank's segment table (``_hp_pack_table``, cached in
+    ``tables`` when given), and issue one permute per offset (or the
+    all-to-all).  Returns a callable that waits and gives the landed flat
+    payloads ``{delta: [tot]}``.
 
     Level ``lc`` never exchanges: the branch-root gather that feeds the
     replicated top sweep already delivered every rank's ``xhat[lc]``.
     """
-    depth, lc, p = dshape.depth, dshape.lc, dshape.p
+    p = dshape.p
     nv = x_leaves.shape[-1]
-    seg, tot = _hp_payload_layout(dshape, nv)
-    if not tot:
-        return lambda: {}
     bf16 = mode.endswith("-bf16")
+    hp = _hp_pack_table_for(tables, dshape, d, nv, comm.rank, merged, bf16)
+    if not hp.dest:
+        return lambda: {}
     dtype = torch.bfloat16 if bf16 else x_leaves.dtype
-    dev = x_leaves.device
     with phase("halo/pack"):
-        if merged:
-            capmax, pos = _hp_merged_layout(tot, p)
-            buf = torch.zeros((p, capmax), dtype=dtype, device=dev)
-            dest = {delta: buf[(comm.rank - res) % p, lo:lo + tot[delta]]
-                    for delta, (res, lo) in pos.items()}
-        else:
-            dest = {delta: torch.empty(n, dtype=dtype, device=dev)
-                    for delta, n in tot.items()}
-
-    def _pack(src, key, plan: HaloPlan, offsets):
-        for delta, idx in zip(offsets, plan.send):
-            lo, sz = seg[(key, delta)]
-            out = dest[delta][lo:lo + sz]
-            with phase("halo/pack"):
-                if bf16:
-                    out.copy_(kops.halo_pack(src, idx, backend)
-                              .to(torch.bfloat16).reshape(-1))
-                else:
-                    kops.halo_pack(src, idx, backend,
-                                   out=out.view(idx.shape[0], *src.shape[1:]))
-
-    for l in range(lc + 1, depth + 1):
-        i = l - lc
-        if dshape.ranks[l] == 0 or not dshape.br_offsets[i]:
-            continue
-        _pack(xhat[l], l, d.hp_br[i], dshape.br_offsets[i])
-    _pack(x_leaves, depth + 1, d.hp_dense, dshape.dense_offsets)
+        buf = (torch.zeros if merged else torch.empty)(
+            hp.shape, dtype=dtype, device=x_leaves.device)
+        kops.halo_pack_segments(
+            hp.pack, [xhat[l] for l in hp.levels] + [x_leaves],
+            buf.view(-1), backend)
 
     with phase("halo/round"):
         if merged:
             pend = comm.all_to_all_async(buf)
         else:
             pend = {delta: comm.ppermute_async(
-                pay, _halo.perm_of(delta, p), tag=delta + p)
-                for delta, pay in dest.items()}
+                buf[lo:lo + n], _halo.perm_of(delta, p), tag=delta + p)
+                for delta, (lo, n) in hp.dest.items()}
 
     def land() -> Dict[int, torch.Tensor]:
         with phase("halo/round"):
             if not merged:
                 return {delta: w.wait() for delta, w in pend.items()}
             landed = pend.wait()
-        return {delta: landed[(comm.rank + res) % p, lo:lo + tot[delta]]
-                for delta, (res, lo) in pos.items()}
+        return {delta: landed[(comm.rank + res) % p,
+                              lo:lo + hp.dest[delta][1]]
+                for delta, (res, lo) in hp.pos.items()}
     return land
 
 
 def _coupling_phase_overlap(dshape: DistH2Shape, d: DistH2Data, xhat,
                             xhat_top, x_leaves, comm: Comm, mode: str,
                             backend: str = "cuda", schedule: str = "auto",
-                            hide_flops: int = 0):
+                            hide_flops: int = 0,
+                            tables: Optional[dict] = None):
     """Compressed-halo coupling + dense phases on the §4.2 schedule:
     (A) pack and issue the whole matvec's exchange; (B) every diagonal
     (own-column) product, the dense diagonal block and the replicated top
@@ -512,7 +563,8 @@ def _coupling_phase_overlap(dshape: DistH2Shape, d: DistH2Data, xhat,
 
     with phase("hgemv/exchange"):
         land = _hp_pack_exchange(dshape, d, xhat, x_leaves, comm, mode,
-                                 backend, merged=hide_flops > 0)
+                                 backend, merged=hide_flops > 0,
+                                 tables=tables)
 
     def _split(i, k):
         rows = d.s_br_mar[i].shape[0]
@@ -644,11 +696,14 @@ def _dense_phase(dshape: DistH2Shape, d: DistH2Data, x_leaves, comm: Comm,
 def dist_h2_matvec_local(dshape: DistH2Shape, d: DistH2Data, x: torch.Tensor,
                          comm: Comm, mode: str = "halo-plan",
                          backend: str = "cuda", schedule: str = "auto",
-                         hide_flops: int = 0) -> torch.Tensor:
+                         hide_flops: int = 0,
+                         tables: Optional[dict] = None) -> torch.Tensor:
     """One rank's part of ``y = A x``: ``x``, ``y`` are the rank's
     ``[n_local, nv]`` rows.  ``hide_flops > 0`` marks a solver-embedded
     call: the halo-plan exchange merges into one all-to-all and the auto
-    schedule accounts for the solver compute to hide it under."""
+    schedule accounts for the solver compute to hide it under.
+    ``tables`` caches the halo-plan exchange's pack table across calls
+    with the same arguments but ``d`` and ``x`` (``make_dist_matvec``)."""
     if mode not in COMMS:
         raise ValueError(f"unknown comm mode {mode!r}; expected {COMMS}")
     if schedule not in SCHEDULES:
@@ -660,7 +715,7 @@ def dist_h2_matvec_local(dshape: DistH2Shape, d: DistH2Data, x: torch.Tensor,
     if mode.startswith("halo-plan"):
         yhat, yhat_top, y_de = _coupling_phase_overlap(
             dshape, d, xhat, xhat_top, x_leaves, comm, mode, backend,
-            schedule, hide_flops)
+            schedule, hide_flops, tables)
     else:
         yhat, yhat_top = _coupling_phase(dshape, d, xhat, xhat_top, comm,
                                          mode)
@@ -682,10 +737,11 @@ def make_dist_matvec(dshape: DistH2Shape, comm: Comm,
     """
     if backend not in kops.BACKENDS:
         raise ValueError(f"unknown backend {backend!r}")
+    tables: dict = {}             # the halo-plan exchange's pack tables
 
     def fn(d: DistH2Data, x: torch.Tensor) -> torch.Tensor:
         return dist_h2_matvec_local(dshape, d, x, comm, mode, backend,
-                                    schedule, hide_flops)
+                                    schedule, hide_flops, tables)
     return fn
 
 

@@ -22,19 +22,22 @@ blocks' own device: a bitwise copy of what the reference assembles in
 numpy, without a host copy of the operator.
 
 ``start_halo``/``land_halo``/``exchange`` issue and land one level's
-exchange over a ``Comm``; the send rows are packed by ``ops.halo_pack``.
+exchange over a ``Comm``; the send rows of all the level's offsets are
+packed by one ``ops.halo_pack_segments`` call.
 The solver's transposition plan (``build_transpose_plan``,
 ``transpose_a2a``) is not ported yet.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.halo_pack import PackPlan, Segment
 from repro_torch.obs.trace import phase
 
 from .comm import Comm, Pending
@@ -286,16 +289,25 @@ def perm_of(delta: int, p: int) -> List[Tuple[int, int]]:
 def start_halo(x: torch.Tensor, plan: HaloPlan, offsets: Sequence[int],
                comm: Comm, bf16: bool = False, backend: str = "cuda"
                ) -> List[Pending]:
-    """Issue one level's packed exchanges: one ``halo_pack`` + one permute
-    per neighbour offset, shipping only the ``cap`` planned rows.
-    ``bf16`` halves the payload (cast after the pack)."""
+    """Issue one level's packed exchanges: one ``halo_pack`` launch packs
+    every offset's ``cap`` planned rows into one buffer (cast to bf16 on
+    store when ``bf16``, halving the payload), then one permute per
+    neighbour offset ships its slice."""
     x = x.contiguous()
+    row = math.prod(x.shape[1:])
+    segs, lo = [], 0
+    for idx in plan.send[:len(offsets)]:
+        segs.append(Segment(0, idx, lo, row))
+        lo += idx.shape[0] * row
+    pack = PackPlan(segs, bf16=bf16)
+    with phase("halo/pack"):
+        buf = torch.empty(lo, dtype=torch.bfloat16 if bf16 else x.dtype,
+                          device=x.device)
+        kops.halo_pack_segments(pack, [x], buf, backend)
     chunks = []
-    for delta, idx in zip(offsets, plan.send):
-        with phase("halo/pack"):
-            packed = kops.halo_pack(x, idx, backend)
-            if bf16:
-                packed = packed.to(torch.bfloat16)
+    for delta, s in zip(offsets, segs):
+        packed = buf[s.off:s.off + s.idx.shape[0] * row].view(
+            s.idx.shape[0], *x.shape[1:])
         with phase("halo/round"):
             chunks.append(comm.ppermute_async(packed, perm_of(delta, comm.p),
                                               tag=delta + comm.p))

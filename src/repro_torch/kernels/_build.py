@@ -111,3 +111,14 @@ def ptr(t) -> ctypes.c_void_p:
 def stream_of(t) -> ctypes.c_void_p:
     import torch
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def raw_stream(t) -> int:
+    """The current CUDA stream of ``t``'s device as an int, by PyTorch's
+    cheap raw-stream query where this build has it (the hot wrappers'
+    host time is a few microseconds)."""
+    import torch
+    query = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if query is not None:
+        return query(t.get_device())
+    return torch.cuda.current_stream(t.device).cuda_stream

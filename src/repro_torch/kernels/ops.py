@@ -8,7 +8,7 @@ counterpart of the reference's ``"jnp"``).
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -96,3 +96,14 @@ def halo_pack(x: torch.Tensor, idx: torch.Tensor, backend: str = "cuda",
         return _hp.halo_pack(x, idx, out=out)
     y = ref.halo_pack(x, idx)
     return y if out is None else out.copy_(y)
+
+
+def halo_pack_segments(plan: "_hp.PackPlan", srcs: Sequence[torch.Tensor],
+                       dst: torch.Tensor, backend: str = "cuda"
+                       ) -> torch.Tensor:
+    """Pack every segment of ``plan`` into the flat buffer ``dst``: one
+    kernel launch (per ``MAX_SEGMENTS`` segments) on the card, a loop of
+    ``index_select`` otherwise."""
+    if use_kernel(dst, backend):
+        return _hp.pack_segments(plan, srcs, dst)
+    return ref.halo_pack_segments(plan.segments, srcs, dst)

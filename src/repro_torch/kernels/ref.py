@@ -46,3 +46,19 @@ def coupling_mv(s: torch.Tensor, x: torch.Tensor, blk: torch.Tensor,
 def halo_pack(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Gather of the planned send rows, ``y[i] = x[idx[i]]``."""
     return x.index_select(0, idx)
+
+
+def halo_pack_segments(segments, srcs, dst: torch.Tensor) -> torch.Tensor:
+    """Segmented pack (``halo_pack.Segment``s): for each segment one
+    ``index_select`` of its source's rows into its slice of the flat
+    ``dst`` (through a copy that casts where ``dst`` is bf16)."""
+    for s in segments:
+        cap = s.idx.shape[0]
+        if cap and s.row:
+            src = srcs[s.src].reshape(-1, s.row)
+            out = dst[s.off:s.off + cap * s.row].view(cap, s.row)
+            if out.dtype == src.dtype:
+                torch.index_select(src, 0, s.idx, out=out)
+            else:
+                out.copy_(src.index_select(0, s.idx))
+    return dst
