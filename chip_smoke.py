@@ -7,7 +7,9 @@
 In order: the card's name and power limit; the build of the five CUDA
 kernels from ``src/repro_torch/csrc``; each kernel against its plain PyTorch
 version at the main path's shapes and at edge cases, with its time, the
-plain version's time, a library call's time and the roofline bound
+plain version's time, a library call's time and the roofline bound (QR
+and SVD on every route their planners pick, also against float64, and the
+rank-deficient QR question over 12 seeds)
 (``batched_gemm`` at every HGEMV shape beside ``torch.bmm``, with the path
 its planner chose and its host time per call; ``halo_pack`` as rank 0's
 whole exchange in one launch, once the partition exists); then the
@@ -15,7 +17,10 @@ main path at N = 2^20 (2D exponential kernel, l = 0.1, leaf 64, Chebyshev
 p = 6, eta = 0.9): ``construct_h2`` -> ``h2_matvec`` -> ``compress(tol=1e-3)``
 -> ``h2_matvec``, held to the plain backend on the card, to exact kernel rows
 computed in float64, and the compressed product to the uncompressed one
-(compress timed cold, then warm);
+(compress timed cold, then warm, and split into its phases by CUDA events;
+the launches of ``batched_qr`` and ``batched_svd`` counted per route);
+each distinct QR and SVD shape of one warm compress timed on its planned
+route, on the general kernel and by ``torch.linalg``;
 then the distributed path: ``partition_h2`` of that operator over 4 ranks,
 and 4 spawned processes in a gloo group sharing the card (payloads staged
 through pinned host memory) that run the halo-plan distributed HGEMV
@@ -125,14 +130,21 @@ def random_plan(torch, rows: int, maxb: int, nodes: int, gen, lo: int = 1):
     return blk.reshape(-1), col.reshape(-1), cnt, nb
 
 
-def svd_flops(nb: int, n: int, k: int) -> float:
-    """Operations of a thin SVD with U and V, from the shapes alone:
-    Golub-Reinsch 14 m s^2 + 8 s^3, or R-SVD 6 m s^2 + 20 s^3 where fewer
-    (Golub & Van Loan, Matrix Computations, 4th ed., fig. 8.6.1), with
-    m = max(n, k) and s = min(n, k)."""
+def svd_flops(nb: int, n: int, k: int, want_vt: bool = True) -> float:
+    """Operations of a thin SVD from the shapes alone, the fewer of
+    Golub-Reinsch and R-SVD (Golub & Van Loan, Matrix Computations, 4th
+    ed., fig. 8.6.1), m = max(n, k), s = min(n, k): with U and V
+    min(14 m s^2 + 8 s^3, 6 m s^2 + 20 s^3); sigma and U only, n >= k
+    (the thin U1) min(14 m s^2 - 2 s^3, 6 m s^2 + 11 s^3); n < k (U is the
+    small side, V of A^T) min(4 m s^2 + 8 s^3, 2 m s^2 + 11 s^3)."""
     m, s = max(n, k), min(n, k)
-    return nb * float(min(14 * m * s * s + 8 * s ** 3,
-                          6 * m * s * s + 20 * s ** 3))
+    if want_vt:
+        one = min(14 * m * s * s + 8 * s ** 3, 6 * m * s * s + 20 * s ** 3)
+    elif n >= k:
+        one = min(14 * m * s * s - 2 * s ** 3, 6 * m * s * s + 11 * s ** 3)
+    else:
+        one = min(4 * m * s * s + 8 * s ** 3, 2 * m * s * s + 11 * s ** 3)
+    return nb * float(one)
 
 
 def qr_flops(nb: int, n: int, k: int, want_q: bool) -> float:
@@ -376,24 +388,51 @@ def kernel_phase(torch, timer, results: dict) -> None:
         library_ms=bsr_library_ms(torch, timer, s, xl, blk, col, cnt, nb,
                                   maxb))
 
-    # ---- batched_qr: leaf [16384,64,36]; stacks [8192,72,36]; weights
-    # stack [16384,648,36] (R only); wide, rank-deficient, global path ----
-    def qr_case(aa, what, q_cols=None):
+    # ---- batched_qr, every route (``qr_plan``): leaf [16384,64,36] and
+    # stacks [8192,72,36] on the warp route, the weights stack
+    # [16384,648,36] (R only) on the tall route, [.,648,36] with Q and
+    # [64,1152,64] on the general route; wide, rank-deficient, zero
+    # column, ragged tall stacks; each against the plain version and a
+    # float64 QR ----
+    def qr_case(aa, what, q_cols=None, route=None):
         # a rank-deficient panel's Q columns past its rank complete the
-        # basis arbitrarily; they are compared through R and Q^T Q only
-        q, r = kbq.batched_qr(aa)
+        # basis arbitrarily; they are compared through R and Q^T Q only.
+        # The route is the one the shape takes in a large batch (small
+        # batches would take the general route by the batch-size rule)
+        route = route or kbq.qr_plan(*aa.shape[1:])
+        q, r = kbq.batched_qr(aa, route=route)
         qp, rp = ref.batched_qr(aa)
+        q64, r64 = ref.batched_qr(aa.double())
+        what = f"{what} ({route})"
         e1 = check("batched_qr", q[..., :q_cols], qp[..., :q_cols],
                    TOL["batched_qr"], what + " Q")
+        check("batched_qr", q[..., :q_cols], q64[..., :q_cols],
+              TOL["batched_qr"], what + " Q vs float64")
         eye = torch.eye(q.shape[-1], device="cuda")
         check("batched_qr", q.transpose(-1, -2) @ q, eye.expand_as(
             q.transpose(-1, -2) @ q), TOL["batched_qr"], what + " Q^T Q")
         e2 = check("batched_qr", r, rp, TOL["batched_qr"], what + " R")
+        check("batched_qr", r, r64, TOL["batched_qr"], what + " R vs float64")
         return max(e1, e2)
+
+    def qr_r_case(aa, what, route=None):
+        route = route or kbq.qr_plan(*aa.shape[1:], False)
+        rr = kbq.batched_qr_r(aa, route=route)
+        what = f"{what} R only ({route})"
+        e = check("batched_qr", rr, ref.batched_qr(aa)[1], TOL["batched_qr"],
+                  what)
+        check("batched_qr", rr, ref.batched_qr(aa.double())[1],
+              TOL["batched_qr"], what + " vs float64")
+        return e
 
     leaf = rnd(16384, 64, 36)
     err = qr_case(leaf, "leaf [16384,64,36]")
+    qr_case(leaf[:2048], "leaf [2048 of 16384,64,36]", route="general")
     qr_case(rnd(8192, 72, 36), "stacked transfers [8192,72,36]")
+    # the polish factors U = A / sigma, orthonormal up to the Jacobi error
+    # (a random square panel would measure its own conditioning instead)
+    polish = torch.linalg.qr(rnd(4096, 36, 36))[0] + 1e-3 * rnd(4096, 36, 36)
+    qr_case(polish, "SVD polish [4096,36,36]")
     qr_case(rnd(64, 8, 36), "wide [64,8,36]")
     base = rnd(32, 40, 3)
     qr_case(base @ rnd(32, 3, 9), "rank-deficient [32,40,9]", q_cols=3)
@@ -408,28 +447,38 @@ def kernel_phase(torch, timer, results: dict) -> None:
     log("[kernel] batched_qr shared vs global path on [256,648,36]: equal")
     qr_case(rnd(64, 1152, 64), "global path [64,1152,64]")
     wstack = rnd(16384, 648, 36)
-    rw = kbq.batched_qr_r(wstack)
-    require(torch.equal(rw[:1024], kbq.batched_qr(wstack[:1024])[1]),
-            "R-only entry differs from the full QR's R")
-    check("batched_qr", rw[:1024], ref.batched_qr(wstack[:1024])[1],
-          TOL["batched_qr"], "weights stack R [1024 of 16384,648,36]")
+    # R only and the full QR no longer share arithmetic (the weights take
+    # the streamed tall route): each is held to the plain version and to
+    # float64 on its own
+    qr_r_case(wstack[:1024], "weights stack [1024 of 16384,648,36]")
+    qr_r_case(wstack[:1024], "weights stack [1024 of 16384,648,36]",
+              route="general")
+    for rows in (650, 504, 396, 324, 288, 144):
+        qr_r_case(rnd(512, rows, 36), f"ragged tall stack [512,{rows},36]")
     nbytes = 4 * (leaf.numel() + 16384 * 64 * 36 + 16384 * 36 * 36)
     bnd, by = bound_ms(nbytes, qr_flops(16384, 64, 36, True))
     results["batched_qr"] = dict(
         max_abs_err=err, bound_ms=bnd, bound_by=by,
         ms=timer.ms(lambda: kbq.batched_qr(leaf)),
+        general_ms=timer.ms(lambda: kbq.batched_qr(leaf, route="general")),
         plain_ms=timer.ms(lambda: ref.batched_qr(leaf), reps=3),
         library_ms=timer.ms(lambda: torch.linalg.qr(leaf), reps=3))
     wbytes = 4 * (wstack.numel() + 16384 * 36 * 36)
     wb, wby = bound_ms(wbytes, qr_flops(16384, 648, 36, False))
-    log(f"[kernel] batched_qr_r weights stack [16384,648,36]: "
-        f"ms={timer.ms(lambda: kbq.batched_qr_r(wstack), reps=3):.3f} "
-        f"bound_ms={wb:.3f} ({wby})")
-    del wstack, rw
+    log(f"[kernel] batched_qr_r weights stack [16384,648,36]: tall "
+        f"ms={timer.ms(lambda: kbq.batched_qr_r(wstack), reps=5):.4f} "
+        f"general ms="
+        f"{timer.ms(lambda: kbq.batched_qr_r(wstack, route='general'), reps=3):.4f}"
+        f" bound_ms={wb:.4f} ({wby})")
+    del wstack
+    qr_rank_deficient_question(torch, kbq, ref)
 
-    # ---- batched_svd: leaf R^T [16384,36,36]; inner [8192,72,36] ----
-    def svd_case(aa, what):
-        u, sv, vt = kbs.batched_svd(aa)
+    # ---- batched_svd, every route (``svd_plan``): leaf R^T
+    # [16384,36,36] as the strided view compress passes (warp), wide
+    # inner panels [8192,6,36] .. [32,30,36] (warp_t), [8192,72,36]
+    # (warp), the general route forced at square shapes ----
+    def svd_case(aa, what, route=None):
+        u, sv, vt = kbs.batched_svd(aa, route=route)
         up, sp, vtp = ref.batched_svd(aa)
         s64 = torch.linalg.svd(aa.double(), full_matrices=False)[1]
         smax = s64.abs().max(dim=-1).values[:, None]
@@ -442,15 +491,23 @@ def kernel_phase(torch, timer, results: dict) -> None:
               aa.flatten(1).norm(dim=1).clamp_min(1e-30)).max().item()
         gram = u.transpose(-1, -2) @ u
         eo = (gram - torch.eye(gram.shape[-1], device="cuda")).abs().max().item()
+        u1, s1, vt1 = kbs.batched_svd(aa, route=route, want_vt=False)
+        same = vt1 is None and torch.equal(u1, u) and torch.equal(s1, sv)
+        what = f"{what} ({route or kbs.svd_plan(*aa.shape[1:])})"
         log(f"[kernel] batched_svd {what}: sigma vs fp64 kernel={es:.3e} "
             f"plain={ep:.3e} kernel-vs-plain={ekp:.3e} recon={er:.3e} "
-            f"UtU-I={eo:.3e} (tol 1e-4)")
+            f"UtU-I={eo:.3e} (tol 1e-4); U-and-sigma-only call "
+            f"{'bitwise equal' if same else 'DIFFERS'}")
         require(ekp <= 1e-4 and er <= 1e-4 and eo <= 1e-4,
                 f"batched_svd {what} out of tolerance")
+        require(same, f"batched_svd {what}: the U-and-sigma-only call differs")
         return (sv - sp).abs().max().item()
 
-    rl = rnd(16384, 36, 36)
+    rl = rnd(16384, 36, 36).transpose(-1, -2)      # R^T, as compress reads
     err = svd_case(rl, "leaf R^T [16384,36,36]")
+    svd_case(rl[:2048], "leaf R^T [2048 of 16384,36,36]", route="general")
+    svd_case(rnd(8192, 6, 36), "wide inner [8192,6,36]")
+    svd_case(rnd(32, 30, 36), "wide inner [32,30,36]")
     svd_case(rnd(8192, 72, 36), "inner [8192,72,36]")
     svd_case(rnd(64, 18, 7), "odd k [64,18,7]")
     svd_case(rnd(64, 4, 9), "wide [64,4,9]")
@@ -459,11 +516,20 @@ def kernel_phase(torch, timer, results: dict) -> None:
     graded = (g * torch.logspace(0, -7, 12, device="cuda")) @ \
         h.transpose(-1, -2)
     svd_case(graded, "graded spectrum 1e-7 [32,24,12]")
-    nbytes = 4 * (rl.numel() * 2 + 16384 * 36 + 16384 * 36 * 36)
-    bnd, by = bound_ms(nbytes, svd_flops(16384, 36, 36))
+    svd_case(graded, "graded spectrum 1e-7 [32,24,12]", route="general")
+    svd_case(graded.transpose(-1, -2).contiguous(),
+             "graded spectrum 1e-7, wide [32,12,24]")
+    svd_case(rnd(64, 80, 72), "72 columns [64,80,72]")
+    nbytes = 4 * (rl.numel() * 2 + 16384 * 36)
+    bnd, by = bound_ms(nbytes, svd_flops(16384, 36, 36, want_vt=False))
     results["batched_svd"] = dict(
         max_abs_err=err, bound_ms=bnd, bound_by=by,
-        ms=timer.ms(lambda: kbs.batched_svd(rl), reps=5),
+        # the main path's call: U and sigma only (+ the QR polish)
+        ms=timer.ms(lambda: kbs.batched_svd(rl, want_vt=False), reps=5),
+        with_vt_ms=timer.ms(lambda: kbs.batched_svd(rl), reps=5),
+        general_ms=timer.ms(
+            lambda: kbs.batched_svd(rl, want_vt=False, route="general"),
+            reps=3),
         # cuSOLVER takes ~15 s per call here: two timed calls each, warmed
         # by svd_case's own call of the plain version
         plain_ms=timer.ms(lambda: ref.batched_svd(rl), reps=2, warmup=0),
@@ -474,9 +540,151 @@ def kernel_phase(torch, timer, results: dict) -> None:
     results["halo_pack"] = dict(max_abs_err=halo_pack_cases(torch, rnd))
     for name, r in results.items():
         if "ms" in r:
-            log(f"[kernel] {name}: ms={r['ms']:.4f} "
+            extra = "".join(f" {key}={r[key]:.4f}" for key in
+                            ("general_ms", "with_vt_ms") if key in r)
+            log(f"[kernel] {name}: ms={r['ms']:.4f}{extra} "
                 f"plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']} "
                 f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']})")
+
+
+def qr_rank_deficient_question(torch, kbq, ref, seeds: int = 12) -> None:
+    """Which side loses digits on a rank-3 panel [32,40,9]: the first three
+    columns of Q from the kernel (its warp route, the one short panels take
+    on the main path) and from cuSOLVER (``torch.linalg.qr``,
+    sign-fixed), each against a float64 QR of the same input, over
+    ``seeds`` draws.  Those columns are as well determined as the first
+    three columns of A are conditioned, so each error is also read in
+    units of u * kappa_2(A[:, :3]) (u = 2^-24), the forward error a
+    backward-stable QR may have; the kernel is held to n = 40 such units
+    per matrix."""
+    u = 2.0 ** -24
+    worst = {"kernel": 0.0, "cusolver": 0.0, "kernel-vs-cusolver": 0.0,
+             "kernel/(u kappa)": 0.0, "cusolver/(u kappa)": 0.0}
+    for seed in range(seeds):
+        gen = torch.Generator().manual_seed(1000 + seed)
+        a = (torch.randn(32, 40, 3, generator=gen) @
+             torch.randn(32, 3, 9, generator=gen)).cuda()
+        kappa = torch.linalg.cond(a[..., :3].double())
+        q64 = ref.batched_qr(a.double())[0][..., :3]
+        qk = kbq.batched_qr(a, route="warp")[0][..., :3]
+        qc = ref.batched_qr(a)[0][..., :3]
+        ek = (qk.double() - q64).abs().flatten(1).max(dim=1).values
+        ec = (qc.double() - q64).abs().flatten(1).max(dim=1).values
+        errs = {"kernel": ek.max().item(), "cusolver": ec.max().item(),
+                "kernel-vs-cusolver": (qk - qc).abs().max().item(),
+                "kernel/(u kappa)": (ek / (u * kappa)).max().item(),
+                "cusolver/(u kappa)": (ec / (u * kappa)).max().item()}
+        for key, v in errs.items():
+            worst[key] = max(worst[key], v)
+        log(f"[kernel] batched_qr rank-deficient [32,40,9] seed {seed}: "
+            f"Q[:, :3] vs float64 kernel={errs['kernel']:.3e} "
+            f"cusolver={errs['cusolver']:.3e}, kernel vs cusolver "
+            f"{errs['kernel-vs-cusolver']:.3e}; max kappa(A[:, :3]) "
+            f"{kappa.max().item():.3e}; in units of u*kappa kernel "
+            f"{errs['kernel/(u kappa)']:.2f} cusolver "
+            f"{errs['cusolver/(u kappa)']:.2f}")
+    log(f"[kernel] batched_qr rank-deficient [32,40,9] over {seeds} seeds, "
+        f"worst Q[:, :3] vs float64: kernel {worst['kernel']:.3e}, "
+        f"cusolver {worst['cusolver']:.3e}; kernel vs cusolver "
+        f"{worst['kernel-vs-cusolver']:.3e}; in units of u*kappa: kernel "
+        f"{worst['kernel/(u kappa)']:.2f}, cusolver "
+        f"{worst['cusolver/(u kappa)']:.2f} (tol 40 units against float64)")
+    require(worst["kernel/(u kappa)"] <= 40.0,
+            f"rank-deficient QR kernel vs float64 "
+            f"{worst['kernel/(u kappa)']:.2f} units of u*kappa")
+
+
+def compress_launch_shapes(torch, shape, data) -> dict:
+    """Every QR and SVD launch of one warm ``compress(tol=1e-3)``, counted
+    by (entry, shape, contiguous): the wrappers are wrapped for one call."""
+    from collections import Counter
+    from repro_torch.core.compression import compress
+    from repro_torch.kernels import batched_qr as kbq
+    from repro_torch.kernels import batched_svd as kbs
+
+    seen: Counter = Counter()
+    launch_qr, svd = kbq._launch, kbs.batched_svd
+
+    def rec_qr(a, want_q, route, force_global=False):
+        seen[("qr" if want_q else "qr_r", tuple(a.shape),
+              a.is_contiguous())] += 1
+        return launch_qr(a, want_q, route, force_global)
+
+    def rec_svd(a, **kw):
+        seen[("svd" if kw.get("want_vt", True) else "svd_u",
+              tuple(a.shape), a.is_contiguous())] += 1
+        return svd(a, **kw)
+
+    kbq._launch, kbs.batched_svd = rec_qr, rec_svd
+    try:
+        compress(shape, data, tol=1e-3, backend="cuda")
+        torch.cuda.synchronize()
+    finally:
+        kbq._launch, kbs.batched_svd = launch_qr, svd
+    return dict(seen)
+
+
+def compress_shape_timings(torch, timer, shape, data) -> list:
+    """Each distinct QR / SVD shape one warm compress launches: its
+    launches, the planned route's ms, the general (first) kernel's ms, the
+    bound, the plain version's ms and ``torch.linalg``'s ms (one call each;
+    cuSOLVER is slow here), on ``[kernel]`` lines.  An SVD's time includes
+    its QR polish where its route polishes.  The plain SVD is
+    ``torch.linalg.svd`` itself, so one call gives both of its numbers."""
+    from repro_torch.kernels import batched_qr as kbq
+    from repro_torch.kernels import batched_svd as kbs
+    from repro_torch.kernels import ref
+
+    seen = compress_launch_shapes(torch, shape, data)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rows, tot_new, tot_gen = [], 0.0, 0.0
+    for (entry, shp, contig), count in sorted(
+            seen.items(), key=lambda kv: (kv[0][0], -kv[0][1][0])):
+        nb, n, k = shp
+        kn = min(n, k)
+        a = torch.randn(nb, n, k, device="cuda", generator=gen)
+        if not contig:                    # the leaf's R^T view
+            a = a.transpose(-1, -2).contiguous().transpose(-1, -2)
+        if entry in ("qr", "qr_r"):
+            want_q = entry == "qr"
+            route = kbq.qr_plan(n, k, want_q, nb=nb)
+            run = (lambda r: kbq.batched_qr(a, route=r)) if want_q else \
+                (lambda r: kbq.batched_qr_r(a, route=r))
+            lib = (lambda: torch.linalg.qr(a)) if want_q else \
+                (lambda: torch.linalg.qr(a, mode="r"))
+            plain = lambda: ref.batched_qr(a)
+            nbytes = 4 * nb * (n * k + (n * kn if want_q else 0) + kn * k)
+            flops = qr_flops(nb, n, k, want_q)
+        else:
+            want_vt = entry == "svd"
+            route = kbs.svd_plan(n, k, want_vt)
+            run = lambda r: kbs.batched_svd(a, route=r, want_vt=want_vt)
+            lib = lambda: torch.linalg.svd(a, full_matrices=False)
+            plain = None
+            nbytes = 4 * nb * (n * k + n * kn + kn + (kn * k if want_vt
+                                                      else 0))
+            flops = svd_flops(nb, n, k, want_vt)
+        bnd, by = bound_ms(nbytes, flops)
+        ms = timer.ms(lambda: run(route), reps=5)
+        gms = timer.ms(lambda: run("general"), reps=3) if route != "general" \
+            else ms
+        lms = timer.ms(lib, reps=1, warmup=0)
+        pms = timer.ms(plain, reps=1, warmup=0) if plain else lms
+        tot_new += count * ms
+        tot_gen += count * gms
+        row = dict(entry=entry, shape=list(shp), launches=count, route=route,
+                   ms=ms, general_ms=gms, bound_ms=bnd, bound_by=by,
+                   plain_ms=pms, library_ms=lms)
+        rows.append(row)
+        log(f"[kernel] compress shape {entry} {list(shp)}: launches "
+            f"{count} per compress, route {route} ms={ms:.4f} general "
+            f"ms={gms:.4f} bound_ms={bnd:.4f} ({by}) plain ms={pms:.1f} "
+            f"torch.linalg ms={lms:.1f}")
+        del a
+    log(f"[kernel] compress QR+SVD kernel time per compress, sum of "
+        f"launches x ms: planned routes {tot_new:.2f} ms, general kernels "
+        f"{tot_gen:.2f} ms")
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -524,10 +732,15 @@ def main_path(torch, log2n: int, device: str = "cuda") -> tuple:
     from repro_torch.core.kernels_fn import exponential_kernel
     from repro_torch.core.matvec import h2_matvec
     from repro_torch.kernels import ops
+    from repro_torch.obs.trace import phase_events
 
     def sync():
         if device == "cuda":
             torch.cuda.synchronize()
+
+    def route_diff(before):
+        return {name: {r: n - before[name][r] for r, n in routes.items()}
+                for name, routes in ops.route_launch_counts().items()}
 
     side = 1 << (log2n // 2)
     pts = regular_grid_points(side, 2)
@@ -570,12 +783,14 @@ def main_path(torch, log2n: int, device: str = "cuda") -> tuple:
     require(rel_exact <= 1e-4, f"HGEMV vs exact rows {rel_exact:.3e}")
 
     before = ops.launch_counts()
+    before_routes = ops.route_launch_counts()
     sync()
     t0 = time.perf_counter()
     cshape, cdata = compress(shape, data, tol=1e-3, backend="cuda")
     sync()
     t_compress = time.perf_counter() - t0
     per_compress = {k: v - before[k] for k, v in ops.launch_counts().items()}
+    routes_compress = route_diff(before_routes)
     ratio = shape.memory_lowrank() / cshape.memory_lowrank()
     log(f"[main] compress(tol=1e-3) cuda: {t_compress:.3f} s, ranks "
         f"{cshape.ranks}, low-rank memory ratio {ratio:.2f}x")
@@ -583,6 +798,7 @@ def main_path(torch, log2n: int, device: str = "cuda") -> tuple:
     yc = h2_matvec(cshape, cdata, x, backend="cuda")
     sync()
     launches = ops.launch_counts()           # the main path ends here
+    routes = ops.route_launch_counts()
 
     warm = []                                # the same call, warm
     for _ in range(3):
@@ -597,6 +813,19 @@ def main_path(torch, log2n: int, device: str = "cuda") -> tuple:
     log(f"[main] compress(tol=1e-3) cuda: first (cold) call {t_compress:.3f}"
         f" s, median of {len(warm)} warm calls {t_compress_warm:.3f} s "
         f"({', '.join(f'{t:.3f}' for t in warm)})")
+    compress_phases = {}
+
+    def log_phases(backend, ph):
+        compress_phases[backend] = dict(ph)
+        log(f"[main] compress phases, backend={backend} (ms between CUDA "
+            f"events at each phase's entry and exit): " +
+            ", ".join(f"{k}={v:.2f}" for k, v in ph.items()))
+
+    if device == "cuda":
+        sync()
+        with phase_events() as ph:
+            compress(shape, data, tol=1e-3, backend="cuda")
+        log_phases("cuda", ph)
     rel_c = ((yc - y).norm() / y.norm()).item()
     log(f"[main] compressed h2_matvec vs uncompressed: rel err {rel_c:.3e} "
         f"(tol 5e-3)")
@@ -604,7 +833,12 @@ def main_path(torch, log2n: int, device: str = "cuda") -> tuple:
             f"compressed HGEMV vs uncompressed {rel_c:.3e}")
 
     t0 = time.perf_counter()
-    pshape, pdata = compress(shape, data, tol=1e-3, backend="torch")
+    if device == "cuda":
+        with phase_events() as ph:
+            pshape, pdata = compress(shape, data, tol=1e-3, backend="torch")
+        log_phases("torch", ph)
+    else:
+        pshape, pdata = compress(shape, data, tol=1e-3, backend="torch")
     sync()
     t_compress_plain = time.perf_counter() - t0
     log(f"[main] compress(tol=1e-3) torch backend: {t_compress_plain:.3f} s, "
@@ -642,7 +876,7 @@ def main_path(torch, log2n: int, device: str = "cuda") -> tuple:
                 f"events, median of 6): " +
                 ", ".join(f"{k}={v:.3f}" for k, v in phases.items()))
     log(f"[main] launches per HGEMV: {per_hgemv}; per compress: "
-        f"{per_compress}")
+        f"{per_compress}; per compress by route: {routes_compress}")
     n_coupling_levels = sum(1 for l in range(shape.depth + 1)
                             if shape.coupling_counts[l] and shape.ranks[l])
     expect = {"batched_gemm": 2 * shape.depth + 2,
@@ -652,7 +886,9 @@ def main_path(torch, log2n: int, device: str = "cuda") -> tuple:
         f"{'matches' if match else 'DIFFERS'}")
     require(match, "launches per HGEMV differ from the code's count")
     state = dict(shape=shape, data=data, x=x, y=y, ranks=cshape.ranks)
-    return dict(launches=launches, construct_s=t_construct,
+    return dict(launches=launches, routes=routes,
+                routes_per_compress=routes_compress,
+                compress_phase_ms=compress_phases, construct_s=t_construct,
                 compress_s=t_compress, compress_warm_s=t_compress_warm,
                 compress_plain_s=t_compress_plain,
                 ranks=cshape.ranks, memory_ratio=ratio, rel_exact=rel_exact,
@@ -744,6 +980,7 @@ def _dist_rank_work(rank: int, dshape, shard, target_ranks,
     y_c = mv_c(cd, x)
     sync()
     res["launches_path"] = ops.launch_counts()
+    res["routes_path"] = ops.route_launch_counts()
 
     def timed(fn, dd, reps=15, warm=3):
         ts = []
@@ -965,6 +1202,8 @@ def dist_phase(torch, timer, state: dict, results: dict,
                 f"rank {r} received {res['recv_bytes']} != model {model}")
     launches = {k: sum(res["launches_path"][k] for res in ranks)
                 for k in r0["launches_path"]}
+    routes = {name: {r: sum(res["routes_path"][name][r] for res in ranks)
+                     for r in rr} for name, rr in r0["routes_path"].items()}
     keys = ("hgemv_ms", "hgemv_plain_ms", "hgemv_allgather_ms",
             "hgemv_compressed_ms", "compress_s")
     times = {k: statistics.median(res[k] for res in ranks) for k in keys}
@@ -981,14 +1220,16 @@ def dist_phase(torch, timer, state: dict, results: dict,
         ", ".join(f"{k}={v:.3f}" for k, v in phases.items()) +
         f"; the call itself took {timed_call:.3f} ms with phase timing on")
     peak_ranks = max(res["max_memory_allocated"] for res in ranks)
-    log(f"[dist] launches over the distributed path (all ranks): {launches}")
+    log(f"[dist] launches over the distributed path (all ranks): {launches};"
+        f" by route: {routes}")
     log(f"[memory] distributed phase: parent max_memory_allocated "
         f"{parent_peak} bytes (operator + partition), largest rank "
         f"{peak_ranks} bytes")
     t_phase = time.perf_counter() - t_phase
     log(f"[dist] phase took {t_phase:.1f} s (partition {t_part:.1f} s, "
         f"ranks {t_ranks:.1f} s)")
-    return dict(launches=launches, rel_single=worst, rel_compressed=worst_c,
+    return dict(launches=launches, routes=routes, rel_single=worst,
+                rel_compressed=worst_c,
                 packs_per_hgemv=want_packs, recv_bytes=r0["recv_bytes"],
                 staged_bytes=r0["staged_bytes"], phase_ms=phases,
                 phase_timed_call_ms=timed_call,
@@ -1032,6 +1273,14 @@ def main() -> int:
     main, state = main_path(torch, args.log2n)
     for name, n in main["launches"].items():
         log(f"[kernels] {name}: {n} launches on the main path")
+    for name, rr in main["routes"].items():
+        log(f"[kernels] {name} by route on the main path: {rr}")
+    for name, route in (("batched_qr", "warp"), ("batched_qr", "tall"),
+                        ("batched_svd", "warp"), ("batched_svd", "warp_t")):
+        require(main["routes"][name][route] > 0,
+                f"{name} route {route} was not launched on the main path")
+    shape_rows = compress_shape_timings(torch, timer, state["shape"],
+                                        state["data"])
     for name in ("batched_gemm", "coupling_mv", "batched_qr", "batched_svd"):
         require(main["launches"][name] > 0,
                 f"{name} was not launched on the main path")
@@ -1057,12 +1306,17 @@ def main() -> int:
             bound_by=r["bound_by"], library_ms=r["library_ms"]))
     summary = {k: v for k, v in main.items() if k != "launches"}
     dsummary = {k: v for k, v in dist.items() if k != "launches"}
+    detail_qr_svd = {"compress_shapes": shape_rows, **{
+        name: {k: results[name][k] for k in ("general_ms", "with_vt_ms")
+               if k in results[name]}
+        for name in ("batched_qr", "batched_svd")}}
     detail = {"batched_gemm": {k: results["batched_gemm"][k]
                                for k in ("shapes", "host")},
               "halo_pack": {k: v for k, v in results["halo_pack"].items()
                             if k not in ("ms", "plain_ms", "bound_ms",
                                          "bound_by", "library_ms",
-                                         "max_abs_err")}}
+                                         "max_abs_err")},
+              **detail_qr_svd}
     log(json.dumps({"main_path": summary, "distributed": dsummary,
                     "kernel_detail": detail, "card": smi}))
     log(smi)

@@ -89,7 +89,8 @@ def compression_weights(shape: H2Shape, data: H2Data, backend: str = "cuda",
 def truncation_leaf_factors(r_leaf: torch.Tensor, backend: str = "cuda"
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Leaf upsweep step: SVD of ``R^T`` (U orthonormal) -> (basis, svals)."""
-    w, s, _ = kops.backend_svd(r_leaf.transpose(-1, -2), backend)
+    w, s, _ = kops.backend_svd(r_leaf.transpose(-1, -2), backend,
+                               want_vt=False)
     return w, s
 
 
@@ -106,7 +107,7 @@ def truncation_inner_factors(p: torch.Tensor, transfer: torch.Tensor,
     rl = pe.shape[1]
     stack = pe.reshape(pe.shape[0] // 2, 2 * rl, pe.shape[2])
     m = torch.matmul(stack, r_parent.transpose(-1, -2))
-    g, s, _ = kops.backend_svd(m, backend)
+    g, s, _ = kops.backend_svd(m, backend, want_vt=False)
     return stack, g, s
 
 

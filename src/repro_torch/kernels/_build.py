@@ -104,6 +104,26 @@ I = ctypes.c_int
 L = ctypes.c_longlong
 
 
+SM_SMEM = 233472          # H100: shared memory of one SM (228 KB)
+BLOCK_SMEM_RESERVED = 1024  # reserved by the system for each resident block
+MAX_WARPS_PER_BLOCK = 4
+
+
+def warps_per_block(bytes_per_warp: int, limit: int) -> int:
+    """Warps (one matrix each) per block for a warp-per-matrix kernel: the
+    count up to ``MAX_WARPS_PER_BLOCK`` that keeps the most warps resident
+    on an SM by shared memory (the largest such count on a tie), within
+    the ``limit`` one block may use."""
+    best, best_w = 0, 1
+    for w in range(1, MAX_WARPS_PER_BLOCK + 1):
+        if w * bytes_per_warp > limit:
+            break
+        resident = w * (SM_SMEM // (w * bytes_per_warp + BLOCK_SMEM_RESERVED))
+        if resident >= best:
+            best, best_w = resident, w
+    return best_w
+
+
 def ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 

@@ -29,9 +29,19 @@ def launch_counts() -> Dict[str, int]:
     return {name: mod.LAUNCHES for name, mod in _KERNEL_MODULES.items()}
 
 
+def route_launch_counts() -> Dict[str, Dict[str, int]]:
+    """Launches of each route of the kernels that have several (their
+    planners choose), since the last ``reset_launch_counts``."""
+    return {name: dict(mod.ROUTE_LAUNCHES)
+            for name, mod in _KERNEL_MODULES.items()
+            if hasattr(mod, "ROUTE_LAUNCHES")}
+
+
 def reset_launch_counts() -> None:
     for mod in _KERNEL_MODULES.values():
         mod.LAUNCHES = 0
+        for route in getattr(mod, "ROUTE_LAUNCHES", {}):
+            mod.ROUTE_LAUNCHES[route] = 0
 
 
 def use_kernel(t: torch.Tensor, backend: str) -> bool:
@@ -77,10 +87,13 @@ def backend_qr_r(a: torch.Tensor, backend: str = "cuda") -> torch.Tensor:
     return backend_qr(a, backend)[1]
 
 
-def backend_svd(a: torch.Tensor, backend: str = "cuda"
-                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+def backend_svd(a: torch.Tensor, backend: str = "cuda", want_vt: bool = True
+                ) -> Tuple[torch.Tensor, torch.Tensor,
+                           Optional[torch.Tensor]]:
+    """Reduced SVD.  ``want_vt=False`` lets the kernel skip V^T (it then
+    returns None there); the plain path computes it all the same."""
     if use_kernel(a, backend):
-        return _bs.batched_svd(a)
+        return _bs.batched_svd(a, want_vt=want_vt)
     nb, n, k = a.shape
     if 0 in a.shape:
         kn = min(n, k)

@@ -9,19 +9,24 @@ entered is recorded in ``PHASES_SEEN``, as in the reference.
 Inside ``phase_times(sync)`` every phase also adds its host-clock time
 (``sync()`` at entry and exit, so a phase's time includes the device work
 it enqueued) to the returned dict: the per-phase breakdown of a
-measurement run, not for timed runs themselves.
+measurement run, not for timed runs themselves.  Inside ``phase_events()``
+every phase instead records a CUDA event at entry and exit, without a
+synchronize; the dict is filled with the milliseconds between them when
+the block ends (a phase's time then includes any gap while the host
+enqueues it, and a host sync inside the phase).
 """
 from __future__ import annotations
 
 import contextlib
 import time
 from collections import defaultdict
-from typing import Callable, Dict, Iterator, Optional, Set
+from typing import Callable, Dict, Iterator, List, Optional, Set, Tuple
 
 import torch
 
 PHASES_SEEN: Set[str] = set()
 _TIMES: Optional[Dict[str, float]] = None
+_EVENTS: Optional[List[Tuple[str, object, object]]] = None
 _SYNC: Callable[[], None] = lambda: None
 
 
@@ -30,6 +35,15 @@ def phase(name: str) -> Iterator[None]:
     """Annotate the enclosed work as belonging to ``name``."""
     PHASES_SEEN.add(name)
     with torch.profiler.record_function(name):
+        if _EVENTS is not None:
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            try:
+                yield
+            finally:
+                ev[1].record()
+                _EVENTS.append((name, ev[0], ev[1]))
+            return
         if _TIMES is None:
             yield
             return
@@ -52,3 +66,20 @@ def phase_times(sync: Callable[[], None] = lambda: None
         yield _TIMES
     finally:
         _TIMES, _SYNC = None, (lambda: None)
+
+
+@contextlib.contextmanager
+def phase_events() -> Iterator[Dict[str, float]]:
+    """Accumulate device milliseconds per phase name (CUDA events between
+    a phase's entry and exit) while active; the dict is filled when the
+    block ends."""
+    global _EVENTS
+    times: Dict[str, float] = defaultdict(float)
+    _EVENTS = []
+    try:
+        yield times
+        torch.cuda.synchronize()
+        for name, a, b in _EVENTS:
+            times[name] += a.elapsed_time(b)
+    finally:
+        _EVENTS = None

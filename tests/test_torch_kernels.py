@@ -328,34 +328,134 @@ def test_cuda_coupling_mv_matches_plain(cuda, rows, maxb, k, nv):
     assert _rel(got.cpu(), ref.coupling_mv(*t, maxb=maxb).cpu()) <= 1e-5
 
 
+def _qr_input(gen, kind, b, n, k):
+    """A QR test panel: random, rank-deficient (rank 3), a zero column, or
+    graded columns (scales 1 ... 1e-7)."""
+    a = torch.randn(b, n, k, generator=gen)
+    if kind == "rank-deficient":
+        a = torch.randn(b, n, 3, generator=gen) @ \
+            torch.randn(b, 3, k, generator=gen)
+    elif kind == "zero-column":
+        a[:, :, k // 2] = 0.0
+    elif kind == "graded":
+        a = a * torch.logspace(0, -7, k)
+    return a
+
+
+def _qr_close(q, r, q_want, r_want, q_cols):
+    assert (q[..., :q_cols] - q_want[..., :q_cols]).abs().max().item() <= 1e-4
+    assert (r - r_want).abs().max().item() <= \
+        1e-4 * r_want.abs().max().item()
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,n,k", [(64, 64, 36), (32, 72, 36), (8, 648, 36),
-                                   (8, 8, 36), (4, 1152, 64), (5, 9, 1)])
-def test_cuda_qr_matches_plain(cuda, b, n, k):
+@pytest.mark.parametrize("b,n,k,kind", [
+    (64, 64, 36, "random"), (32, 72, 36, "random"), (8, 648, 36, "random"),
+    (8, 8, 36, "random"), (4, 1152, 64, "random"), (5, 9, 1, "random"),
+    (16, 36, 36, "random"), (16, 30, 30, "random"), (16, 6, 6, "random"),
+    (6, 650, 36, "random"), (3, 396, 36, "random"), (4, 504, 36, "random"),
+    (4, 288, 36, "random"), (4, 324, 36, "random"), (4, 144, 36, "random"),
+    (8, 40, 9, "rank-deficient"), (4, 300, 9, "rank-deficient"),
+    (8, 40, 9, "zero-column"), (4, 300, 36, "zero-column"),
+    (8, 64, 36, "graded"), (4, 648, 36, "graded")])
+def test_cuda_qr_matches_plain(cuda, b, n, k, kind):
+    """Every route against the plain version and a float64 QR, Q at 1e-4
+    and R at 1e-4 * max|R|: the route ``qr_plan`` gives the shape in a
+    large batch (forced here, as these batches are small), the R-only entry
+    likewise (bitwise equal to the full QR's R where both take one route),
+    and the general route, whose shared and global paths are bitwise equal.
+    Past a rank-deficient panel's rank Q completes the basis arbitrarily:
+    compared through R and Q^T Q."""
+    from repro_torch.kernels.batched_qr import qr_plan
     gen = torch.Generator().manual_seed(b + n + k)
-    a = torch.randn(b, n, k, generator=gen).to(cuda)
-    q, r = kbq.batched_qr(a)
+    a = _qr_input(gen, kind, b, n, k).to(cuda)
+    q_cols = 3 if kind == "rank-deficient" else min(n, k)
+    q_route, r_route = qr_plan(n, k, True), qr_plan(n, k, False)
+    q, r = kbq.batched_qr(a, route=q_route)
     q0, r0 = ref.batched_qr(a)
-    assert (q - q0).abs().max().item() <= 1e-4
-    assert (r - r0).abs().max().item() <= 1e-4 * r0.abs().max().item()
-    assert torch.equal(kbq.batched_qr_r(a), r)
+    q64, r64 = ref.batched_qr(a.double())
+    _qr_close(q, r, q0, r0, q_cols)
+    _qr_close(q.double(), r.double(), q64, r64, q_cols)
+    gram = q.transpose(-1, -2) @ q
+    assert (gram - torch.eye(q.shape[-1], device=cuda)).abs().max() <= 1e-4
+    rr = kbq.batched_qr_r(a, route=r_route)
+    held = (rr, r0, r64)
+    if kind == "zero-column" and r_route == "tall":
+        # R of a matrix with a zero column is not unique: Householder keeps
+        # the transformed row j beside its zero diagonal, the streamed
+        # route leaves that row zero.  Both give R^T R = A^T A, which is
+        # what the compression weights are used through.
+        held = tuple(x.transpose(-1, -2) @ x for x in held)
+    got, want, want64 = held
+    assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+    assert (got.double() - want64).abs().max().item() <= \
+        1e-4 * want64.abs().max().item()
+    if r_route == q_route:
+        assert torch.equal(rr, r)
+    qs, rs = kbq.batched_qr(a, route="general")
+    _qr_close(qs, rs, q0, r0, q_cols)
     qg, rg = kbq.batched_qr(a, force_global=True)
-    assert torch.equal(qg, q) and torch.equal(rg, r)
+    assert torch.equal(qg, qs) and torch.equal(rg, rs)
+    planned = (q, r) if qr_plan(n, k, True, nb=b) == q_route else (qs, rs)
+    assert all(torch.equal(x, y) for x, y in zip(kbq.batched_qr(a), planned))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["leaf", "inner", "odd-k", "wide", "graded"])
-def test_cuda_svd_matches_plain(cuda, name):
+def test_cuda_qr_strided_input(cuda):
+    """A transposed view is read through its strides (4-byte copies)."""
+    gen = torch.Generator().manual_seed(11)
+    a = torch.randn(16, 36, 64, generator=gen).to(cuda).transpose(-1, -2)
+    for want_q in (True, False):
+        r0 = ref.batched_qr(a)[1]
+        r = kbq.batched_qr(a)[1] if want_q else kbq.batched_qr_r(a)
+        assert (r - r0).abs().max().item() <= 1e-4 * r0.abs().max().item()
+    big = torch.randn(4, 36, 300, generator=gen).to(cuda).transpose(-1, -2)
+    r0 = ref.batched_qr(big)[1]
+    assert (kbq.batched_qr_r(big) - r0).abs().max().item() <= \
+        1e-4 * r0.abs().max().item()
+
+
+def _svd_input(rng, name):
+    if name == "rank-deficient":
+        return _rand(rng, 16, 36, 4) @ _rand(rng, 16, 4, 36)
+    if name == "zero-column":
+        a = _rand(rng, 16, 36, 36)
+        a[:, :, 5] = 0.0
+        return a
+    return {"leaf": lambda: _rand(rng, 64, 36, 36),
+            "inner": lambda: _rand(rng, 32, 72, 36),
+            "odd-k": lambda: _rand(rng, 8, 18, 7),
+            "wide": lambda: _rand(rng, 8, 4, 9),
+            "wide-inner-6": lambda: _rand(rng, 64, 6, 36),
+            "wide-inner-30": lambda: _rand(rng, 32, 30, 36),
+            "wide-graded": lambda: np.swapaxes(
+                _conditioned(rng, 4, 36, 12, 7), 1, 2),
+            "graded": lambda: _conditioned(rng, 4, 24, 12, 7),
+            "wide-k": lambda: _rand(rng, 4, 80, 72)}[name]()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,route", [
+    ("leaf", None), ("leaf", "general"), ("inner", None), ("odd-k", None),
+    ("wide", None), ("wide-inner-6", None), ("wide-inner-30", None),
+    ("wide-graded", None), ("graded", None), ("graded", "general"),
+    ("rank-deficient", None), ("zero-column", None), ("wide-k", None)])
+def test_cuda_svd_matches_plain(cuda, name, route):
+    """Every route (``svd_plan``; ``general`` forced at square shapes) holds
+    the SVD contract against the plain sigma; the U-and-sigma-only call
+    gives the same U and sigma bitwise.  The leaf's input is the strided
+    ``R^T`` view, as compress passes it."""
     rng = np.random.default_rng(len(name))
-    a = {"leaf": lambda: _rand(rng, 64, 36, 36),
-         "inner": lambda: _rand(rng, 32, 72, 36),
-         "odd-k": lambda: _rand(rng, 8, 18, 7),
-         "wide": lambda: _rand(rng, 8, 4, 9),
-         "graded": lambda: _conditioned(rng, 4, 24, 12, 7)}[name]()
+    a = _svd_input(rng, name)
     at = torch.as_tensor(a).to(cuda)
-    u, s, vt = kbs.batched_svd(at)
+    if name == "leaf":
+        at = at.transpose(-1, -2).contiguous().transpose(-1, -2)
+        assert not at.is_contiguous()
+    u, s, vt = kbs.batched_svd(at, route=route)
     s0 = ref.batched_svd(at)[1]
     _svd_checks(a, u.cpu(), s.cpu(), vt.cpu(), s0.cpu().numpy())
+    u1, s1, vt1 = kbs.batched_svd(at, route=route, want_vt=False)
+    assert vt1 is None and torch.equal(u1, u) and torch.equal(s1, s)
 
 
 @pytest.mark.cuda
