@@ -20,7 +20,11 @@ computed in float64, and the compressed product to the uncompressed one
 (compress timed cold, then warm, and split into its phases by CUDA events;
 the launches of ``batched_qr`` and ``batched_svd`` counted per route);
 each distinct QR and SVD shape of one warm compress timed on its planned
-route, on the general kernel and by ``torch.linalg``;
+route, on the general kernel and by ``torch.linalg``; each of the 13
+``coupling_mv`` launches of the uncompressed and the compressed HGEMV on
+its real inputs, on its planned route and on the general kernel, beside
+its byte bound and the plain marshaled route (``coupling_mv`` launches
+counted per route: none on the general route on the main path);
 then the distributed path: ``partition_h2`` of that operator over 4 ranks,
 and 4 spawned processes in a gloo group sharing the card (payloads staged
 through pinned host memory) that run the halo-plan distributed HGEMV
@@ -361,16 +365,31 @@ def kernel_phase(torch, timer, results: dict) -> None:
     xl = rnd(rows, m, nv)
     err = check("coupling_mv", kcm.coupling_mv(s, xl, blk, col, cnt, maxb=maxb),
                 ref.coupling_mv(s, xl, blk, col, cnt, maxb=maxb),
-                TOL["coupling_mv"], f"dense leaves [{nb},64,64] nv=16")
+                TOL["coupling_mv"], f"dense leaves [{nb},64,64] nv=16 "
+                f"({kcm.cmv_plan(rows, m, m, nv, maxb).route})")
+    check("coupling_mv", kcm.coupling_mv(s, xl, blk, col, cnt, maxb=maxb,
+                                         route="general"),
+          ref.coupling_mv(s, xl, blk, col, cnt, maxb=maxb),
+          TOL["coupling_mv"], f"dense leaves [{nb},64,64] nv=16 (general)")
+    # the uncompressed levels, nv = 1, odd shapes (k = 130 and nv = 20 take
+    # the general route), and the compressed operator's shapes
     for (r2, mb2, k2, nv2) in [(16384, 17, 36, 16), (16384, 17, 36, 1),
                                (4096, 9, 7, 16), (64, 3, 1, 5),
-                               (33, 4, 130, 20)]:
+                               (33, 4, 130, 20), (16384, 17, 3, 16),
+                               (4096, 13, 5, 16), (64, 13, 15, 16)]:
         b2, c2, n2, nb2 = random_plan(torch, r2, mb2, r2, gen)
         b2, c2, n2 = b2.cuda(), c2.cuda(), n2.cuda()
         s2, x2 = rnd(nb2, k2, k2), rnd(r2, k2, nv2)
-        check("coupling_mv", kcm.coupling_mv(s2, x2, b2, c2, n2, maxb=mb2),
+        route = kcm.cmv_plan(r2, k2, k2, nv2, mb2).route
+        before = kcm.ROUTE_LAUNCHES[route]
+        got = kcm.coupling_mv(s2, x2, b2, c2, n2, maxb=mb2)
+        require(kcm.ROUTE_LAUNCHES[route] == before + 1,
+                f"coupling_mv rows={r2} k={k2} nv={nv2} did not launch "
+                f"route {route}")
+        check("coupling_mv", got,
               ref.coupling_mv(s2, x2, b2, c2, n2, maxb=mb2),
-              TOL["coupling_mv"], f"rows={r2} maxb={mb2} k={k2} nv={nv2}")
+              TOL["coupling_mv"],
+              f"rows={r2} maxb={mb2} k={k2} nv={nv2} ({route})")
     z = kcm.coupling_mv(rnd(0, 4, 4), rnd(8, 4, 2),
                         torch.zeros(0, dtype=torch.int32, device="cuda"),
                         torch.zeros(0, dtype=torch.int32, device="cuda"),
@@ -383,6 +402,8 @@ def kernel_phase(torch, timer, results: dict) -> None:
     results["coupling_mv"] = dict(
         max_abs_err=err, bound_ms=bnd, bound_by=by,
         ms=timer.ms(lambda: kcm.coupling_mv(s, xl, blk, col, cnt, maxb=maxb)),
+        general_ms=timer.ms(lambda: kcm.coupling_mv(
+            s, xl, blk, col, cnt, maxb=maxb, route="general")),
         plain_ms=timer.ms(
             lambda: ref.coupling_mv(s, xl, blk, col, cnt, maxb=maxb), reps=3),
         library_ms=bsr_library_ms(torch, timer, s, xl, blk, col, cnt, nb,
@@ -725,6 +746,79 @@ def hgemv_phase_ms(torch, shape, data, x, backend: str) -> dict:
     return {k: statistics.median(v) for k, v in out.items()}
 
 
+def coupling_level_timings(torch, timer, shape, data, x, what: str) -> dict:
+    """Each ``coupling_mv`` launch of one HGEMV on the main path's operator
+    (``what``: uncompressed or compressed), on its real inputs: the 12
+    coupling levels (S of the level against the upsweep's ``xhat``) and the
+    dense leaves.  For each, on a ``[kernel] coupling level`` line: rows,
+    k, maxb, blocks, the planned route's ms and the general route's ms
+    (CUDA events, L2 flushed), the byte bound (S, x and y once, the plan),
+    the plain route's ms (``marshaled_multiply``: gather + ``torch.bmm``),
+    the wrapper's host time per call (no synchronize) and the error
+    against ``ref.coupling_mv`` (held to 1e-5).  Returns
+    the rows and their sums."""
+    from repro_torch.core import matvec as mv
+    from repro_torch.kernels import coupling_mv as kcm
+    from repro_torch.kernels import ref
+    nv = x.shape[-1]
+    xl = x.reshape(shape.n_leaves, shape.leaf_size, nv).contiguous()
+    xhat = mv.upsweep(shape, data, xl, "cuda")
+    launches = []
+    for l in range(shape.depth + 1):
+        if shape.coupling_counts[l] and shape.ranks[l]:
+            launches.append((f"l={l}", data.s[l], xhat[l], data.plan.sblk[l],
+                             data.plan.scol[l], data.plan.scnt[l],
+                             data.s_mar[l]))
+    launches.append(("dense", data.dense, xl, data.plan.dblk, data.plan.dcol,
+                     data.plan.dcnt, data.dense_mar))
+    rows_out = []
+    for name, s, xx, blk, col, cnt, mar in launches:
+        rows = cnt.shape[0]
+        maxb = blk.shape[0] // rows
+        nb, k1, k2 = s.shape
+        plan = kcm.cmv_plan(rows, k1, k2, nv, maxb)
+        got = kcm.coupling_mv(s, xx, blk, col, cnt, maxb=maxb)
+        want = ref.coupling_mv(s, xx, blk, col, cnt, maxb=maxb)
+        plain = mv.marshaled_multiply(mar, xx, col, "torch")
+        _, rel = rel_err(got, want)
+        _, rel_plain = rel_err(plain, want)
+        require(rel <= TOL["coupling_mv"],
+                f"coupling level {what} {name}: rel err {rel:.3e}")
+        require(rel_plain <= TOL["coupling_mv"],
+                f"coupling level {what} {name}: marshaled plain route "
+                f"{rel_plain:.3e}")
+        used = int((blk < nb).sum())
+        nbytes = 4 * (used * k1 * k2 + xx.numel() + rows * k1 * nv) + \
+            4 * (2 * rows * maxb + rows)
+        bnd, by = bound_ms(nbytes, 2.0 * used * k1 * k2 * nv)
+        row = dict(
+            operator=what, launch=name, rows=rows, k=k1, maxb=maxb,
+            blocks=used, route=plan.route, kb=plan.kb, rel_err=rel,
+            ms=timer.ms(lambda: kcm.coupling_mv(s, xx, blk, col, cnt,
+                                                maxb=maxb)),
+            general_ms=timer.ms(lambda: kcm.coupling_mv(
+                s, xx, blk, col, cnt, maxb=maxb, route="general")),
+            bound_ms=bnd, bound_by=by,
+            plain_ms=timer.ms(lambda: mv.marshaled_multiply(mar, xx, col,
+                                                            "torch")),
+            host_us=host_us(torch, lambda: kcm.coupling_mv(
+                s, xx, blk, col, cnt, maxb=maxb), calls=50))
+        rows_out.append(row)
+        log(f"[kernel] coupling level {what} {name}: rows={rows} k={k1} "
+            f"maxb={maxb} blocks={used} route {plan.route}/{plan.kb}: "
+            f"ms={row['ms']:.4f} general ms={row['general_ms']:.4f} "
+            f"bound_ms={bnd:.4f} ({by}) plain marshaled ms="
+            f"{row['plain_ms']:.4f}; host per call {row['host_us']:.1f} us;"
+            f" rel err {rel:.2e} (tol 1e-5)"
+            + (" SLOWER THAN PLAIN" if row["ms"] > row["plain_ms"] else ""))
+    sums = {k: sum(r[k] for r in rows_out if r["launch"] != "dense")
+            for k in ("ms", "general_ms", "bound_ms", "plain_ms")}
+    log(f"[kernel] coupling levels {what}, sum over the "
+        f"{len(rows_out) - 1} level launches: " +
+        ", ".join(f"{k}={v:.4f}" for k, v in sums.items()))
+    return dict(levels=rows_out, sums=sums)
+
+
 def main_path(torch, log2n: int, device: str = "cuda") -> tuple:
     from repro_torch.core.clustering import regular_grid_points
     from repro_torch.core.compression import compress
@@ -762,9 +856,11 @@ def main_path(torch, log2n: int, device: str = "cuda") -> tuple:
         f"{shape.dense_maxb}")
 
     before = ops.launch_counts()
+    before_routes = ops.route_launch_counts()
     y = h2_matvec(shape, data, x, backend="cuda")
     sync()
     per_hgemv = {k: v - before[k] for k, v in ops.launch_counts().items()}
+    per_hgemv_routes = route_diff(before_routes)["coupling_mv"]
     y_plain = h2_matvec(shape, data, x, backend="torch")
     _, r_plain = rel_err(y, y_plain)
     rel_plain = ((y - y_plain).norm() / y_plain.norm()).item()
@@ -869,14 +965,20 @@ def main_path(torch, log2n: int, device: str = "cuda") -> tuple:
         hgemv_compressed_plain_ms=hgemv_ms(cshape, cdata, "torch"))
     log("[main] median warm HGEMV nv=16 (host clock around synchronize): " +
         ", ".join(f"{k}={v:.3f}" for k, v in times.items()))
+    hgemv_phases = {}
     if device == "cuda":
-        for backend in ("cuda", "torch"):
-            phases = hgemv_phase_ms(torch, shape, data, x, backend)
-            log(f"[main] HGEMV phases, backend={backend} (ms between CUDA "
-                f"events, median of 6): " +
-                ", ".join(f"{k}={v:.3f}" for k, v in phases.items()))
-    log(f"[main] launches per HGEMV: {per_hgemv}; per compress: "
-        f"{per_compress}; per compress by route: {routes_compress}")
+        for what, s_, d_ in (("uncompressed", shape, data),
+                             ("compressed", cshape, cdata)):
+            for backend in ("cuda", "torch"):
+                phases = hgemv_phase_ms(torch, s_, d_, x, backend)
+                hgemv_phases[f"{what}/{backend}"] = phases
+                log(f"[main] HGEMV phases, {what}, backend={backend} (ms "
+                    f"between CUDA events, median of 6): " +
+                    ", ".join(f"{k}={v:.3f}" for k, v in phases.items()))
+    log(f"[main] launches per HGEMV: {per_hgemv}; coupling_mv by route per "
+        f"HGEMV: {per_hgemv_routes}; coupling_mv by route on the main path: "
+        f"{routes['coupling_mv']}; per compress: {per_compress}; per "
+        f"compress by route: {routes_compress}")
     n_coupling_levels = sum(1 for l in range(shape.depth + 1)
                             if shape.coupling_counts[l] and shape.ranks[l])
     expect = {"batched_gemm": 2 * shape.depth + 2,
@@ -885,8 +987,10 @@ def main_path(torch, log2n: int, device: str = "cuda") -> tuple:
     log(f"[main] expected per HGEMV from the code: {expect} -> "
         f"{'matches' if match else 'DIFFERS'}")
     require(match, "launches per HGEMV differ from the code's count")
-    state = dict(shape=shape, data=data, x=x, y=y, ranks=cshape.ranks)
+    state = dict(shape=shape, data=data, x=x, y=y, ranks=cshape.ranks,
+                 cshape=cshape, cdata=cdata)
     return dict(launches=launches, routes=routes,
+                hgemv_phase_ms=hgemv_phases,
                 routes_per_compress=routes_compress,
                 compress_phase_ms=compress_phases, construct_s=t_construct,
                 compress_s=t_compress, compress_warm_s=t_compress_warm,
@@ -1262,9 +1366,12 @@ def main() -> int:
     logs = _build.build_all()
     log(f"[build] {len(logs)} kernels built in {time.perf_counter() - t0:.1f} s")
     for name, text in logs.items():
+        entry = ""
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1] if "'" in line else ""
+            elif "registers" in line or "spill" in line:
+                log(f"[build] {name}: {entry}: {line.strip()}")
 
     timer = Timer(torch)
     results: dict = {}
@@ -1279,8 +1386,18 @@ def main() -> int:
                         ("batched_svd", "warp"), ("batched_svd", "warp_t")):
         require(main["routes"][name][route] > 0,
                 f"{name} route {route} was not launched on the main path")
+    cm = main["routes"]["coupling_mv"]
+    require(cm["general"] == 0 and
+            sum(cm.values()) == main["launches"]["coupling_mv"],
+            f"a main-path coupling_mv launch took the general route: {cm}")
     shape_rows = compress_shape_timings(torch, timer, state["shape"],
                                         state["data"])
+    coupling_rows = {
+        what: coupling_level_timings(torch, timer, state[s_], state[d_],
+                                     state["x"], what)
+        for what, s_, d_ in (("uncompressed", "shape", "data"),
+                             ("compressed", "cshape", "cdata"))}
+    del state["cshape"], state["cdata"]
     for name in ("batched_gemm", "coupling_mv", "batched_qr", "batched_svd"):
         require(main["launches"][name] > 0,
                 f"{name} was not launched on the main path")
@@ -1316,6 +1433,8 @@ def main() -> int:
                             if k not in ("ms", "plain_ms", "bound_ms",
                                          "bound_by", "library_ms",
                                          "max_abs_err")},
+              "coupling_mv": {"general_ms": results["coupling_mv"][
+                  "general_ms"], "levels": coupling_rows},
               **detail_qr_svd}
     log(json.dumps({"main_path": summary, "distributed": dsummary,
                     "kernel_detail": detail, "card": smi}))

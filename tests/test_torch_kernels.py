@@ -318,7 +318,9 @@ def test_cuda_gemm_matches_plain(cuda, b, m, k, n):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("rows,maxb,k,nv", [(64, 17, 36, 16), (64, 5, 64, 16),
-                                            (33, 3, 7, 1), (9, 2, 130, 20)])
+                                            (33, 3, 7, 1), (9, 2, 130, 20),
+                                            (64, 17, 3, 16), (64, 13, 5, 16),
+                                            (64, 13, 15, 16), (64, 5, 64, 1)])
 def test_cuda_coupling_mv_matches_plain(cuda, rows, maxb, k, nv):
     rng = np.random.default_rng(rows + maxb + k + nv)
     blk, col, cnt, nb = random_plan(rng, rows, maxb, rows)

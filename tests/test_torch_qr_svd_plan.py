@@ -13,6 +13,7 @@ import torch
 
 from repro_torch.kernels import batched_qr as kbq
 from repro_torch.kernels import batched_svd as kbs
+from repro_torch.kernels import coupling_mv as kcm
 from repro_torch.kernels import ops
 
 K = 36
@@ -140,7 +141,8 @@ def test_route_launch_counts_reset():
     ops.reset_launch_counts()
     counts = ops.route_launch_counts()
     assert counts == {"batched_qr": dict.fromkeys(kbq.ROUTES, 0),
-                      "batched_svd": dict.fromkeys(kbs.ROUTES, 0)}
+                      "batched_svd": dict.fromkeys(kbs.ROUTES, 0),
+                      "coupling_mv": dict.fromkeys(kcm.ROUTES, 0)}
 
 
 def test_plain_svd_ignores_want_vt():
