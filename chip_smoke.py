@@ -31,8 +31,19 @@ through pinned host memory) that run the halo-plan distributed HGEMV
 (``halo_pack`` packs every exchange), its plain twin, the allgather
 baseline, ``make_dist_compress`` to the main path's ranks and the
 compressed distributed HGEMV, each rank held to the single-device rows
-(each rank gets its shard through a queue and releases it before exit).
-Launch counts are reset just before each path and read just after.
+(each rank gets its shard through a queue and releases it before exit);
+then the solve path: ``repro_torch.apps.fractional.solve(512)`` (the §6.4
+fractional-diffusion PCG solve with the GMG V-cycle, N = 262,144, h2_tol
+1e-6, tol 1e-8, its segments replayed from CUDA graphs; its build
+compresses K and runs the extended grid's HGEMV), with its build's parts,
+iterations, recurrence and true residuals, graph against eager, one graph
+segment against the same eager segment (bitwise), the per-iteration split
+of an eager segment by CUDA events, every ``batched_gemm`` of an nv = 1
+HGEMV beside ``torch.bmm`` and every ``coupling_mv`` beside its bound; the
+same solve on the plain backend (iterations within 2, u within 1e-4); and
+``solve(16)`` against the dense direct solve (2e-2).
+Launch counts are reset just before each path and read just after (graph
+replays launch kernels without their wrappers: logged apart).
 Any failure raises; the last line is the device JSON only on success.
 It needs a CUDA card: without one it exits non-zero and prints no result.
 """
@@ -1340,6 +1351,464 @@ def dist_phase(torch, timer, state: dict, results: dict,
                 partition_s=t_part, phase_s=t_phase, **times)
 
 
+# ---------------------------------------------------------------------------
+# solve phase: the §6.4 fractional-diffusion PCG solve with the GMG V-cycle
+# ---------------------------------------------------------------------------
+
+SOLVE_N = 512                  # N = 262,144: the paper's per-GPU load
+# stag_window: at n = 512 the preconditioned residual's 2-norm climbs to
+# about 3x its start by iteration 15 and is still above it at iteration 30,
+# so the PCG's default 30-iteration window (the reference's) stops the
+# solve there as stagnation; the phase logs that stop on the same operator
+# and drives the solve with a 60-iteration window
+SOLVE_ARGS = dict(beta=0.75, h2_tol=1e-6, tol=1e-8, maxiter=500,
+                  stag_window=60)
+# the plain backend's whole solve builds its own operator (its compress by
+# torch.linalg, 5.1e-7 away from the kernels' on a random vector); float32
+# resolves the solution of this system only to ~1e-3 at n = 512 (A applied
+# to the solution in float32 is 4.5e-4 off its float64 value: D u and K u
+# cancel), so the two solutions agree to that, not to 1e-4.  The same
+# operator with the plain HGEMV is held to 1e-4.
+TWIN_U_TOL = 5e-3
+# the kernels' compress(tol=1e-6) against torch.linalg's (the plain
+# build's): each is within about h2_tol of the uncompressed K, so the two
+# compressed operators are within twice that of each other on a random
+# vector (4x the 5.1e-7 this phase logs on an H100)
+OP_GAP_TOL = 2e-6
+
+
+def true_relres(torch, apply_a, b, u) -> float:
+    """``||b - A u|| / ||b||`` with the difference and the norms taken in
+    float64 (A as ``apply_a`` applies it)."""
+    r = b.double() - apply_a(u.reshape(-1)).double()
+    return (r.norm() / b.double().norm()).item()
+
+
+def operator_f64(torch, prob):
+    """The problem's operator ``h^2 (D + K + C)`` with its stored float32
+    values evaluated in float64 (plain backend): ``D u`` and ``K u``
+    cancel on smooth vectors, which float32 evaluation resolves only to a
+    few digits."""
+    import dataclasses
+    from repro_torch.apps.fractional import apply_c
+    from repro_torch.core.matvec import h2_matvec
+
+    def f64(v):
+        if isinstance(v, torch.Tensor) and v.is_floating_point():
+            return v.double()
+        return [f64(t) for t in v] if isinstance(v, list) else v
+
+    data = prob["data"]
+    d64 = dataclasses.replace(data, **{
+        f.name: f64(getattr(data, f.name))
+        for f in dataclasses.fields(data) if f.name != "plan"})
+    dev = prob["d_diag"].device
+    perm = torch.as_tensor(prob["perm"], device=dev)
+    unperm = torch.as_tensor(prob["unperm"], device=dev)
+    d, kappa = prob["d_diag"].double(), prob["kappa"].double()
+    h, gamma, n = prob["h"], prob["gamma"], prob["n"]
+
+    def apply_a(u):
+        u = u.double()
+        ku = h2_matvec(prob["shape"], d64, u[perm][:, None],
+                       backend="torch")[:, 0][unperm]
+        cu = apply_c(u.reshape(n, n), kappa, h).reshape(-1)
+        return (h * h) * (d * u + ku + gamma * cu)
+
+    return apply_a
+
+
+def device_ops(torch, fn, x) -> int:
+    """ATen operations one call of ``fn(x)`` dispatches that do device work
+    (views, allocations and profiler marks left out), plus the hand-written
+    kernels' launches: about the kernels an eager call launches, and a
+    captured one replays."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from repro_torch.kernels import ops
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            name = func.name()
+            if not (func.is_view or "empty" in name or "_unsafe_view" in name
+                    or name.startswith("profiler::")):
+                Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    before = sum(ops.launch_counts().values())
+    with Count():
+        fn(x)
+    return Count.n + sum(ops.launch_counts().values()) - before
+
+
+def graph_split(torch, apply_a, pre, b, reps: int = 20) -> dict:
+    """Device milliseconds of one operator application and one
+    preconditioner application, each captured alone into a CUDA graph and
+    replayed ``reps`` times between two CUDA events (the pieces of a
+    graph-replayed iteration)."""
+    out = {}
+    for name, fn in (("apply-A", apply_a), ("precond", pre)):
+        x = b.clone()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn(x)
+        torch.cuda.current_stream().wait_stream(side)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            fn(x)
+        g.replay()
+        a, z = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        for _ in range(reps):
+            g.replay()
+        z.record()
+        z.synchronize()
+        out[name] = a.elapsed_time(z) / reps
+        del g
+    return out
+
+
+def recorded_gemms(torch, shape, data, x) -> list:
+    """(name, a, b) of every ``batched_gemm`` call of one HGEMV, in call
+    order, recorded on the real inputs (the upsweep's leaf and transfer
+    products, the downsweep's transfers and leaf)."""
+    from repro_torch.core.matvec import h2_matvec
+    from repro_torch.kernels import ops
+    calls, real = [], ops.batched_gemm
+
+    def record(a, b, backend="cuda"):
+        calls.append((a, b))
+        return real(a, b, backend)
+
+    ops.batched_gemm = record
+    try:
+        h2_matvec(shape, data, x, backend="cuda")
+    finally:
+        ops.batched_gemm = real
+    q = shape.depth
+    names = ([f"leaf V^T x l={q}"] +
+             [f"F^T l={l}" for l in range(q, 0, -1)] +
+             [f"E l={l}" for l in range(1, q + 1)] + [f"leaf U l={q}"])
+    require(len(calls) == len(names),
+            f"{len(calls)} batched_gemm calls per HGEMV, expected "
+            f"{len(names)}")
+    return [(nm, a, b) for nm, (a, b) in zip(names, calls)]
+
+
+def iteration_split(torch, apply_a, pre, b, steps: int) -> dict:
+    """Milliseconds per PCG iteration by phase: CUDA events at each phase's
+    entry and exit over one eager segment of ``steps`` iterations, all of
+    them active (a phase's time includes the host's enqueue gaps).  The
+    HGEMV's own share is the sum of its four phases (inside apply-A)."""
+    from repro_torch.obs.trace import phase_events
+    from repro_torch.solvers import krylov
+    state = krylov.pcg_init(apply_a, b, pre)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with phase_events() as ph:
+        out = krylov.pcg_segment(apply_a, b, state, pre, steps=steps,
+                                 maxiter=10 * steps, graph=False)
+    wall = (time.perf_counter() - t0) * 1e3
+    require(int(out.k) == steps, "the timed eager segment stopped early")
+    split = {k: v / steps for k, v in sorted(ph.items())}
+    split["hgemv (sum of hgemv/*)"] = sum(v for k, v in split.items()
+                                          if k.startswith("hgemv/"))
+    split["wall per iteration (host clock)"] = wall / steps
+    return split
+
+
+def solve_phase(torch, timer, n: int = SOLVE_N, device: str = "cuda"
+                ) -> dict:
+    """``repro_torch.apps.fractional.solve(n)`` on the card with the kernels
+    and its iterations replayed from CUDA graphs (launches counted over the
+    whole call, the build included), then on the same operator: the true
+    residual, eager against graph, one segment replayed against the same
+    segment run eagerly (bitwise), the per-iteration split of an eager
+    segment, and the HGEMV's nv = 1 ``batched_gemm`` and ``coupling_mv``
+    launches beside their bounds; then the same solve with the plain
+    backend, its compressed K held against the kernels' (ranks, HGEMV),
+    and ``solve(16)`` against the dense direct solve.  The solve path's
+    launches are those that ran: the replays' included, the calls recorded
+    while capturing left out.
+    ``device="cpu"`` rehearses the phase without a card (no kernel runs,
+    so the launch checks fail there)."""
+    from repro_torch.apps import fractional as pf
+    from repro_torch.kernels import ops
+    from repro_torch.solvers import graphs, krylov
+
+    on_card = device == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    t_phase = time.perf_counter()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+
+    ops.reset_launch_counts()
+    captured0 = dict(graphs.CAPTURED_LAUNCHES)
+    replayed0 = dict(graphs.REPLAYED_LAUNCHES)
+    captures0 = dict(krylov.TRACE_COUNTS)
+    sync()
+    t0 = time.perf_counter()
+    res = pf.solve(n, device=device, backend="cuda", **SOLVE_ARGS)
+    sync()
+    t_total = time.perf_counter() - t0
+    # the solve path ends here.  Launches that ran: the wrappers' counts,
+    # less their calls while a graph was captured (recorded, not run),
+    # plus the launches the graph replays made (no wrapper sees those)
+    counted = graphs.launch_tally()
+    captured = {k: graphs.CAPTURED_LAUNCHES[k] - captured0.get(k, 0)
+                for k in counted}
+    replayed = {k: graphs.REPLAYED_LAUNCHES[k] - replayed0.get(k, 0)
+                for k in counted}
+    ran = {k: counted[k] - captured[k] + replayed[k] for k in counted}
+    launches = {k: v for k, v in ran.items() if "/" not in k}
+    routes: dict = {}
+    for k, v in ran.items():
+        if "/" in k:
+            name, route = k.split("/")
+            routes.setdefault(name, {})[route] = v
+    captures = {k: v - captures0[k] for k, v in krylov.TRACE_COUNTS.items()
+                if v != captures0[k]}
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    prob, tm = res["prob"], res["timings"]
+    shape = prob["shape"]
+    log(f"[solve] solve(n={n}, N={n * n}, " +
+        ", ".join(f"{k}={v}" for k, v in SOLVE_ARGS.items()) +
+        f", backend=cuda): build parts (s) " +
+        ", ".join(f"{k}={v:.3f}" for k, v in tm.items() if k != "solve") +
+        f"; whole call {t_total:.3f} s; max_memory_allocated {peak} bytes")
+    log(f"[solve] K: depth {shape.depth}, leaf {shape.leaf_size}, ranks "
+        f"after compress(tol={SOLVE_ARGS['h2_tol']}) {shape.ranks}, "
+        f"operator {prob['data'].nbytes()} bytes")
+    b = torch.ones((n * n,), dtype=torch.float32, device=device) * \
+        (2.0 / n) ** 2
+    apply_a = pf.make_operator(prob, backend="cuda")
+    runs = [("float32 scalars", res)]
+    if res["status"] != 0 or not res["converged"]:
+        log(f"[solve] float32 scalars: status {res['status']}, relres "
+            f"{res['relres']:.3e} after {res['iters']} iterations: the fp64 "
+            f"scalar rung runs")
+        res = pf.solve(n, device=device, backend="cuda",
+                       scalar_dtype=torch.float64, **SOLVE_ARGS)
+        runs.append(("float64 scalars", res))
+    a64 = operator_f64(torch, prob)
+    for what, r in runs:
+        tr = true_relres(torch, apply_a, b, r["u"])
+        r["true_relres"] = tr
+        r["true_relres_f64"] = true_relres(torch, a64, b, r["u"])
+        log(f"[solve] {what}: {r['iters']} iterations, status {r['status']}"
+            f" ({'converged' if r['converged'] else 'NOT converged'}), "
+            f"recurrence relres {r['relres']:.3e}, true relres {tr:.3e} "
+            f"(operator in float32, as the solve applies it), "
+            f"{r['true_relres_f64']:.3e} (its values in float64); solve "
+            f"{r['timings']['solve']:.3f} s "
+            f"({r['timings']['solve'] / max(r['iters'], 1) * 1e3:.3f} ms "
+            f"per iteration, capture included), {r['host_syncs']} host "
+            f"syncs (one per segment of {krylov.SEGMENT_STEPS})")
+    sdt = torch.float64 if len(runs) > 1 else None
+    require(res["status"] == 0 and res["converged"] and
+            res["relres"] <= SOLVE_ARGS["tol"],
+            f"solve(n={n}) status {res['status']}, relres {res['relres']}")
+    require(bool(torch.isfinite(res["u"]).all()) and
+            res["u"].shape == (n, n), "solution not finite or misshapen")
+    u_flat = res["u"].reshape(-1)
+    eval_err = ((apply_a(u_flat).double() - a64(u_flat)).norm() /
+                a64(u_flat).norm()).item()
+    xr = torch.randn(n * n, generator=torch.Generator().manual_seed(4)
+                     ).to(device)
+    eval_err_rand = ((apply_a(xr).double() - a64(xr)).norm() /
+                     a64(xr).norm()).item()
+    log(f"[solve] A applied in float32 against float64 (same values): "
+        f"{eval_err:.3e} relative on the solution (D u and K u cancel), "
+        f"{eval_err_rand:.3e} on a random vector")
+    del a64
+    pre = pf.make_preconditioner(prob, device=device)
+    state = krylov.pcg_init(apply_a, b, pre)
+    out_ops = {name: device_ops(torch, fn, b) for name, fn in (
+        ("apply-A", apply_a), ("precond", pre),
+        ("iteration", lambda v: krylov.pcg_segment(
+            apply_a, v, state, pre, steps=1, graph=False)))}
+    log(f"[solve] device operations (ATen ops that do device work, plus "
+        f"the kernels' launches) per eager call: {out_ops}")
+    log(f"[solve] launches that ran on the solve path (build included): "
+        f"{launches}; by route: {routes}; segment captures {captures}; of "
+        f"them: the wrappers' counts {counted}, less the calls recorded "
+        f"while capturing {captured}, plus the launches replayed from the "
+        f"graphs {replayed}")
+
+    out = dict(n=n, iters=res["iters"], relres=res["relres"],
+               true_relres=res["true_relres"],
+               true_relres_f64=res["true_relres_f64"],
+               f32_eval_err=dict(solution=eval_err, random=eval_err_rand),
+               device_ops=out_ops,
+               status=res["status"],
+               scalar_dtype=str(sdt), build_s={k: v for k, v in tm.items()
+                                               if k != "solve"},
+               solve_s=res["timings"]["solve"], host_syncs=res["host_syncs"],
+               call_s=t_total, max_memory_allocated=peak, ranks=shape.ranks,
+               launches=launches, routes=routes,
+               launch_tally=dict(wrappers=counted, captured=captured,
+                                 replayed=replayed),
+               fp32_first=dict(iters=runs[0][1]["iters"],
+                               relres=runs[0][1]["relres"],
+                               status=runs[0][1]["status"]))
+
+    pcg_args = dict(tol=SOLVE_ARGS["tol"], maxiter=SOLVE_ARGS["maxiter"],
+                    stag_window=SOLVE_ARGS["stag_window"], scalar_dtype=sdt)
+    # the same solve with the default (the reference's) stagnation window
+    r = krylov.pcg(apply_a, b, pre, tol=SOLVE_ARGS["tol"],
+                   maxiter=SOLVE_ARGS["maxiter"], scalar_dtype=sdt,
+                   graph=on_card)
+    hist = r.res_history[:int(r.iters) + 1].cpu()
+    out["default_window"] = dict(iters=int(r.iters), status=int(r.status),
+                                 relres=float(r.relres),
+                                 peak_relres=float(hist.max()))
+    log(f"[solve] the same PCG with the default stag_window=30: "
+        f"{int(r.iters)} iterations, status {int(r.status)}, relres "
+        f"{float(r.relres):.3e} (history peak {float(hist.max()):.3f} at "
+        f"iteration {int(hist.argmax())})")
+
+    # eager against graph on the same operator and preconditioner
+    timing = {}
+    for what, graph in (("graph, capture included", True),
+                        ("graph, warm", True), ("eager", False)):
+        sync()
+        t0 = time.perf_counter()
+        r = krylov.pcg(apply_a, b, pre, graph=graph and on_card, **pcg_args)
+        sync()
+        wall = time.perf_counter() - t0
+        it = int(r.iters)
+        timing[what] = dict(s=wall, iters=it, ms_per_iter=wall / it * 1e3)
+        log(f"[solve] pcg {what}: {it} iterations in {wall:.3f} s, "
+            f"{wall / it * 1e3:.3f} ms per iteration")
+        require(it == res["iters"] and torch.equal(r.x.reshape(n, n),
+                                                   res["u"]),
+                f"pcg ({what}) differs from the solve: {it} iterations "
+                f"against {res['iters']}")
+    out["pcg_timing"] = timing
+    if on_card:
+        require(krylov.TRACE_COUNTS["pcg"] - captures0["pcg"] ==
+                2 + len(runs), "a warm graph solve captured again")
+        # one segment replayed from its graph against the same segment run
+        # eagerly, from the same state: bitwise
+        state = krylov.pcg_init(apply_a, b, pre)
+        seg = {g: krylov.pcg_segment(apply_a, b, state, pre,
+                                     tol=SOLVE_ARGS["tol"],
+                                     steps=krylov.SEGMENT_STEPS,
+                                     maxiter=SOLVE_ARGS["maxiter"], graph=g)
+               for g in (False, True)}
+        same = {f: torch.equal(getattr(seg[False], f), getattr(seg[True], f))
+                for f in ("x", "r", "k")}
+        log(f"[solve] one segment of {krylov.SEGMENT_STEPS} iterations, "
+            f"graph vs eager from the same state: bitwise equal {same}")
+        require(all(same.values()), f"graph segment differs: {same}")
+        split = iteration_split(torch, apply_a, pre, b,
+                                krylov.SEGMENT_STEPS)
+        out["iteration_split_ms"] = split
+        log("[solve] per-iteration split of an eager segment (ms, CUDA "
+            "events at each phase's entry and exit; nested phases "
+            "overlap): " + ", ".join(f"{k}={v:.3f}" for k, v in
+                                     split.items()))
+        gsplit = graph_split(torch, apply_a, pre, b)
+        out["graph_split_ms"] = gsplit
+        log("[solve] one application captured alone and replayed (ms by "
+            "CUDA events, mean of 20 replays): " +
+            ", ".join(f"{k}={v:.3f}" for k, v in gsplit.items()) +
+            f"; graph-replayed iteration (warm solve) "
+            f"{timing['graph, warm']['ms_per_iter']:.3f}")
+        # the same operator with the plain HGEMV (no kernel in the loop)
+        a_plain = pf.make_operator(prob, backend="torch")
+        r = krylov.pcg(a_plain, b, pre, **pcg_args)
+        same_rel = ((r.x.reshape(n, n) - res["u"]).norm() /
+                    res["u"].norm()).item()
+        out.update(same_op_plain_iters=int(r.iters), same_op_plain_u_rel=
+                   same_rel)
+        log(f"[solve] the same operator with the plain HGEMV "
+            f"(backend=torch): {int(r.iters)} iterations against "
+            f"{res['iters']}, u rel err {same_rel:.3e} (tol 1e-4)")
+        require(abs(int(r.iters) - res["iters"]) <= 2 and same_rel <= 1e-4,
+                f"plain HGEMV solve: {int(r.iters)} iterations, u "
+                f"{same_rel:.3e}")
+        del a_plain
+        # the HGEMV at nv = 1: every batched_gemm and coupling_mv launch
+        x1 = torch.randn(shape.n, 1, generator=torch.Generator()
+                         .manual_seed(3)).to(device)
+        gemms = gemm_timings(torch, timer,
+                             recorded_gemms(torch, shape, prob["data"], x1),
+                             lambda *s: torch.randn(*s, device=device))
+        sums = {k: sum(row[k] for row in gemms["shapes"])
+                for k in ("ms", "library_ms", "plain_ms", "bound_ms")}
+        log("[solve] batched_gemm over one nv=1 HGEMV of K, summed: " +
+            ", ".join(f"{k}={v:.4f}" for k, v in sums.items()))
+        out["nv1_gemm"] = dict(shapes=gemms["shapes"], sums=sums)
+        out["nv1_coupling"] = coupling_level_timings(
+            torch, timer, shape, prob["data"], x1, "solve K nv=1")
+    u, iters = res["u"], res["iters"]
+    kdata, kperm = prob["data"], prob["perm"]
+    del apply_a, pre, prob, res, runs        # their graphs go with them
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # the same solve on the plain backend (no kernel)
+    sync()
+    t0 = time.perf_counter()
+    plain = pf.solve(n, device=device, backend="torch", scalar_dtype=sdt,
+                     **SOLVE_ARGS)
+    sync()
+    t_plain = time.perf_counter() - t0
+    u_rel = ((plain["u"] - u).norm() / plain["u"].norm()).item()
+    log(f"[solve] backend=torch (plain PyTorch, graphs; its own build, "
+        f"compress by torch.linalg): {plain['iters']} iterations, status "
+        f"{plain['status']}, relres {plain['relres']:.3e}, ranks "
+        f"{plain['prob']['shape'].ranks}; whole call {t_plain:.3f} s (solve "
+        f"{plain['timings']['solve']:.3f} s); cuda vs torch: iterations "
+        f"{iters} vs {plain['iters']}, u rel err {u_rel:.3e} (tol "
+        f"{TWIN_U_TOL:g}: the float32 solution's own accuracy, see above)")
+    require(plain["status"] == 0 and abs(plain["iters"] - iters) <= 2,
+            f"plain backend took {plain['iters']} iterations against "
+            f"{iters}")
+    require(u_rel <= TWIN_U_TOL, f"cuda vs plain solution {u_rel:.3e}")
+    out.update(plain_iters=plain["iters"], plain_call_s=t_plain,
+               plain_solve_s=plain["timings"]["solve"], plain_u_rel=u_rel)
+    # the kernels' compress (batched_qr, batched_svd) against
+    # torch.linalg's, on the operator the solve built: the same ranks, and
+    # both compressed operators, applied by the plain HGEMV, within
+    # OP_GAP_TOL of each other on one random vector
+    from repro_torch.core.matvec import h2_matvec
+    pshape, pdata = plain["prob"]["shape"], plain["prob"]["data"]
+    xg = torch.randn(shape.n, 1, generator=torch.Generator().manual_seed(6)
+                     ).to(device)
+    yk = h2_matvec(shape, kdata, xg, backend="torch")
+    yp = h2_matvec(pshape, pdata, xg, backend="torch")
+    gap = ((yk - yp).norm() / yp.norm()).item()
+    log(f"[solve] compressed K, kernels' compress vs torch.linalg's: ranks "
+        f"{shape.ranks} vs {pshape.ranks}, HGEMV (plain, both) on a random "
+        f"vector {gap:.3e} relative (tol {OP_GAP_TOL:g})")
+    require(pshape.ranks == shape.ranks and
+            torch.equal(torch.as_tensor(plain["prob"]["perm"]),
+                        torch.as_tensor(kperm)),
+            f"the kernels' compress picked ranks {shape.ranks}, "
+            f"torch.linalg's {pshape.ranks}")
+    require(gap <= OP_GAP_TOL, f"compressed K vs the plain build's {gap:.3e}")
+    out["compress_gap"] = gap
+    del plain, u, kdata, pdata, yk, yp
+
+    # solve(16) against the dense direct solve (the reference's own check)
+    small = pf.solve(16, h2_tol=1e-7, tol=1e-10, device=device)
+    dense = torch.as_tensor(pf.dense_reference_solution(16))
+    err = ((small["u"].cpu().double() - dense).norm() / dense.norm()).item()
+    log(f"[solve] solve(16, h2_tol=1e-7, tol=1e-10) on {device}: "
+        f"{small['iters']} iterations, status {small['status']}; vs the "
+        f"dense direct solve {err:.3e} (tol 2e-2)")
+    require(small["status"] == 0 and err < 2e-2,
+            f"solve(16) vs dense {err:.3e}")
+    out["dense16_rel_err"] = err
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[solve] phase took {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--log2n", type=int, default=20,
@@ -1410,6 +1879,15 @@ def main() -> int:
     for name in ("halo_pack", "batched_qr", "batched_svd"):
         require(dist["launches"][name] > 0,
                 f"{name} was not launched on the distributed path")
+    solve = solve_phase(torch, timer)
+    for name, n in solve["launches"].items():
+        log(f"[kernels] {name}: {n} launches on the solve path")
+    for name in ("batched_gemm", "coupling_mv", "batched_qr", "batched_svd"):
+        require(solve["launches"][name] > 0,
+                f"{name} was not launched on the solve path")
+    cm = solve["routes"]["coupling_mv"]
+    require(cm["general"] == 0,
+            f"a solve-path coupling_mv launch took the general route: {cm}")
     kernels = []
     for name in KERNELS:
         r = results[name]
@@ -1417,7 +1895,8 @@ def main() -> int:
             name=name, route="cuda",
             source=f"src/repro_torch/csrc/{name}.cu",
             replaces=REPLACES[name],
-            launches=main["launches"][name] + dist["launches"][name],
+            launches=(main["launches"][name] + dist["launches"][name] +
+                      solve["launches"][name]),
             max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"]))
@@ -1436,8 +1915,10 @@ def main() -> int:
               "coupling_mv": {"general_ms": results["coupling_mv"][
                   "general_ms"], "levels": coupling_rows},
               **detail_qr_svd}
+    ssummary = {k: v for k, v in solve.items() if k != "launches"}
     log(json.dumps({"main_path": summary, "distributed": dsummary,
-                    "kernel_detail": detail, "card": smi}))
+                    "solve": ssummary, "kernel_detail": detail,
+                    "card": smi}))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

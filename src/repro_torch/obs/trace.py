@@ -56,6 +56,13 @@ def phase(name: str) -> Iterator[None]:
             _TIMES[name] += (time.perf_counter() - t0) * 1e3
 
 
+def timing_active() -> bool:
+    """Whether ``phase_times`` or ``phase_events`` is active (neither may
+    be while a CUDA graph is captured: both act on the host at every
+    phase)."""
+    return _TIMES is not None or _EVENTS is not None
+
+
 @contextlib.contextmanager
 def phase_times(sync: Callable[[], None] = lambda: None
                 ) -> Iterator[Dict[str, float]]:

@@ -78,6 +78,15 @@ def test_entry_points_default_to_the_card():
                compression.compress, dist.make_dist_matvec,
                dist.make_dist_compress):
         assert inspect.signature(fn).parameters["backend"].default == "cuda"
+    from repro_torch.apps import fractional
+    from repro_torch.solvers import mg
+    for fn in (fractional.solve, fractional.make_preconditioner,
+               mg.build_grid_mg):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    for fn in (fractional.solve, fractional.make_operator):
+        assert inspect.signature(fn).parameters["backend"].default == "cuda"
+    prob = fractional.FractionalProblem(8)
+    assert prob.device == "cuda" and prob.backend == "cuda"
 
 
 def test_port_imports_neither_jax_nor_repro():
