@@ -41,7 +41,17 @@ segment against the same eager segment (bitwise), the per-iteration split
 of an eager segment by CUDA events, every ``batched_gemm`` of an nv = 1
 HGEMV beside ``torch.bmm`` and every ``coupling_mv`` beside its bound; the
 same solve on the plain backend (iterations within 2, u within 1e-4); and
-``solve(16)`` against the dense direct solve (2e-2).
+``solve(16)`` against the dense direct solve (2e-2); then the distributed
+solve: that n = 512 problem partitioned over 4 ranks
+(``build_dist_problem``; no second build of the extended operator) and
+solved by 4 spawned gloo ranks sharing the card, the fused halo-plan PCG
+(``make_dist_solve_local``: plan-compressed all-to-all transpositions
+packed by ``halo_pack``, the merged H² exchange, the deep-halo sharded
+V-cycle, rank-order psums; eager), every rank held to the same
+iterations and status, the gathered u to the single-device one (1e-4),
+an iteration's received bytes to ``dist_solve_comm_bytes``, with one
+iteration split by phase, and the two-step schedule held to the fused
+one over 30 iterations.
 Launch counts are reset just before each path and read just after (graph
 replays launch kernels without their wrappers: logged apart).
 Any failure raises; the last line is the device JSON only on success.
@@ -1020,14 +1030,14 @@ DIST_NV = 16
 RANK_TIMEOUT_S = 600
 
 
-def _dist_rank(rank: int, p: int, init: str, out_dir: str, dshape, inbox,
-               target_ranks, device: str = "cuda") -> None:
-    """One rank of the distributed phase (a spawned process).  Its shard
-    ``(d, x)`` -- CUDA tensors shared by the parent over CUDA IPC --
-    comes through the queue ``inbox``, so that no argument of the process
-    holds a share; every reference to it is dropped before the rank exits,
-    which releases the shares.  Writes its results to
-    ``out_dir/rank<r>.pt``."""
+def _rank(rank: int, p: int, init: str, out_dir: str, inbox, device: str,
+          work, args: tuple) -> None:
+    """One rank of a distributed phase (a spawned process) running
+    ``work(rank, shard, on_card, *args)``.  Its shard -- CUDA tensors
+    shared by the parent over CUDA IPC -- comes through the queue
+    ``inbox``, so that no argument of the process holds a share; every
+    reference to it is dropped before the rank exits, which releases the
+    shares.  Writes its results to ``out_dir/rank<r>.pt``."""
     import gc
     import torch
     import torch.distributed as dist
@@ -1038,7 +1048,7 @@ def _dist_rank(rank: int, p: int, init: str, out_dir: str, dshape, inbox,
         torch.cuda.reset_peak_memory_stats()
     dist.init_process_group("gloo", init_method=init, rank=rank,
                             world_size=p)
-    res = _dist_rank_work(rank, dshape, inbox.get(), target_ranks, on_card)
+    res = work(rank, inbox.get(), on_card, *args)
     gc.collect()                    # the shard's last references go here
     if on_card:
         torch.cuda.synchronize()
@@ -1047,8 +1057,44 @@ def _dist_rank(rank: int, p: int, init: str, out_dir: str, dshape, inbox,
     dist.destroy_process_group()
 
 
-def _dist_rank_work(rank: int, dshape, shard, target_ranks,
-                    on_card: bool) -> dict:
+def run_ranks(torch, work, args: tuple, shards: list, device: str) -> list:
+    """Spawn one process per shard in one gloo group (``_rank``), hand each
+    its shard through a queue, join them all within ``RANK_TIMEOUT_S`` and
+    return their results in rank order.  A rank that fails or is still
+    running at the deadline (then terminated) fails the phase."""
+    import tempfile
+    p = len(shards)
+    ctx = torch.multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory() as tmp:
+        init = f"file://{tmp}/rendezvous"
+        inboxes = [ctx.SimpleQueue() for _ in range(p)]
+        procs = [ctx.Process(target=_rank, args=(
+            r, p, init, tmp, inboxes[r], device, work, args))
+            for r in range(p)]
+        t0 = time.perf_counter()
+        for pr in procs:
+            pr.start()
+        for box, shard in zip(inboxes, shards):
+            box.put(shard)
+        try:
+            for pr in procs:
+                pr.join(max(1.0, RANK_TIMEOUT_S -
+                            (time.perf_counter() - t0)))
+        finally:
+            hung = [pr for pr in procs if pr.is_alive()]
+            for pr in hung:
+                pr.terminate()
+                pr.join()
+        require(not hung, f"{len(hung)} rank(s) did not finish within "
+                f"{RANK_TIMEOUT_S} s")
+        codes = [pr.exitcode for pr in procs]
+        require(codes == [0] * p, f"rank exit codes {codes}")
+        return [torch.load(f"{tmp}/rank{r}.pt", weights_only=False)
+                for r in range(p)]
+
+
+def _dist_rank_work(rank: int, shard, on_card: bool, dshape,
+                    target_ranks) -> dict:
     """The distributed phase's calls on one rank; returns its results
     (host tensors and numbers only)."""
     import dataclasses
@@ -1226,7 +1272,6 @@ def dist_phase(torch, timer, state: dict, results: dict,
     IPC).  Checks every rank's rows against the single-device HGEMV.
     ``device="cpu"`` rehearses the phase without a card (no kernel runs,
     so the launch checks fail there)."""
-    import tempfile
     from repro_torch.core.dist import local_shard, matvec_comm_bytes, \
         partition_h2
 
@@ -1248,36 +1293,13 @@ def dist_phase(torch, timer, state: dict, results: dict,
         halo_pack_timed(torch, timer, dshape, ddata, results)
 
     nloc = dshape.n_local()
-    ctx = torch.multiprocessing.get_context("spawn")
-    with tempfile.TemporaryDirectory() as tmp:
-        init = f"file://{tmp}/rendezvous"
-        inboxes = [ctx.SimpleQueue() for _ in range(DIST_P)]
-        procs = [ctx.Process(target=_dist_rank, args=(
-            r, DIST_P, init, tmp, dshape, inboxes[r],
-            tuple(state["ranks"]), device)) for r in range(DIST_P)]
-        t0 = time.perf_counter()
-        for pr in procs:
-            pr.start()
-        for r, box in enumerate(inboxes):
-            box.put((local_shard(dshape, ddata, r),
-                     x[r * nloc:(r + 1) * nloc]))
-        try:
-            for pr in procs:
-                pr.join(max(1.0, RANK_TIMEOUT_S -
-                            (time.perf_counter() - t0)))
-        finally:
-            hung = [pr for pr in procs if pr.is_alive()]
-            for pr in hung:
-                pr.terminate()
-                pr.join()
-        require(not hung, f"{len(hung)} rank(s) did not finish within "
-                f"{RANK_TIMEOUT_S} s")
-        codes = [pr.exitcode for pr in procs]
-        require(codes == [0] * DIST_P, f"rank exit codes {codes}")
-        ranks = [torch.load(f"{tmp}/rank{r}.pt", weights_only=False)
-                 for r in range(DIST_P)]
+    t0 = time.perf_counter()
+    ranks = run_ranks(
+        torch, _dist_rank_work, (dshape, tuple(state["ranks"])),
+        [(local_shard(dshape, ddata, r), x[r * nloc:(r + 1) * nloc])
+         for r in range(DIST_P)], device)
     t_ranks = time.perf_counter() - t0
-    del procs, inboxes, ddata        # the ranks are gone: free the shares
+    del ddata                        # the ranks are gone: free the shares
     if on_card:
         torch.cuda.ipc_collect()
     parent_peak = torch.cuda.max_memory_allocated() if on_card else 0
@@ -1520,7 +1542,7 @@ def iteration_split(torch, apply_a, pre, b, steps: int) -> dict:
 
 
 def solve_phase(torch, timer, n: int = SOLVE_N, device: str = "cuda"
-                ) -> dict:
+                ) -> tuple:
     """``repro_torch.apps.fractional.solve(n)`` on the card with the kernels
     and its iterations replayed from CUDA graphs (launches counted over the
     whole call, the build included), then on the same operator: the true
@@ -1529,7 +1551,9 @@ def solve_phase(torch, timer, n: int = SOLVE_N, device: str = "cuda"
     segment, and the HGEMV's nv = 1 ``batched_gemm`` and ``coupling_mv``
     launches beside their bounds; then the same solve with the plain
     backend, its compressed K held against the kernels' (ranks, HGEMV),
-    and ``solve(16)`` against the dense direct solve.  The solve path's
+    and ``solve(16)`` against the dense direct solve.  Returns the
+    phase's results and what the distributed solve reuses (the problem,
+    the solution and its iterations).  The solve path's
     launches are those that ran: the replays' included, the calls recorded
     while capturing left out.
     ``device="cpu"`` rehearses the phase without a card (no kernel runs,
@@ -1744,8 +1768,11 @@ def solve_phase(torch, timer, n: int = SOLVE_N, device: str = "cuda"
         out["nv1_gemm"] = dict(shapes=gemms["shapes"], sums=sums)
         out["nv1_coupling"] = coupling_level_timings(
             torch, timer, shape, prob["data"], x1, "solve K nv=1")
-    u, iters = res["u"], res["iters"]
+    u, iters, hist1 = res["u"], res["iters"], res["history"].cpu()
     kdata, kperm = prob["data"], prob["perm"]
+    # what the distributed solve reuses: the problem (K compressed on the
+    # card, d_diag, kappa, perms) and this solve's solution
+    keep = dict(prob=prob, u=u, iters=iters, history=hist1)
     del apply_a, pre, prob, res, runs        # their graphs go with them
     if on_card:
         torch.cuda.empty_cache()
@@ -1806,7 +1833,266 @@ def solve_phase(torch, timer, n: int = SOLVE_N, device: str = "cuda"
     out["dense16_rel_err"] = err
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"[solve] phase took {out['phase_s']:.1f} s")
-    return out
+    return out, keep
+
+
+# ---------------------------------------------------------------------------
+# distributed solve phase: the §6.4 solve over DIST_P ranks on the card
+# ---------------------------------------------------------------------------
+
+DSOLVE_MODE = "halo-plan"
+# the two-step schedule (all_gather transpositions, per-level exchanges,
+# one-row V-cycle halos) is held to the fused one over this many
+# iterations from the same start instead of a whole solve, which would
+# take the phase past ~150 s at ~0.3-0.5 s an iteration (PERF.md §6)
+TWO_STEP_ITERS = 30
+# the two schedules' H^2 products may sum in other orders; over
+# TWO_STEP_ITERS iterations their iterates stay within the phase's
+# solution bound
+DSOLVE_U_TOL = 1e-4
+# iterations: the rate (iterations to reach 1e-6) within 2 of the single
+# device's, the final count within 5.  At tol 1e-8 the count sits on the
+# float32 floor: both solves' recurrences hover at 0.86-1.7e-8 over their
+# last 8 iterations (the phase's tail line), so the order of the sums
+# moves the count by a few iterations (258 against 261 on an H100, both
+# reaching 1e-6 at iteration 177; PERF.md §6)
+DSOLVE_RATE_SLACK = 2
+DSOLVE_ITER_SLACK = 5
+
+
+def _dsolve_rank_work(rank: int, args, on_card: bool, dshape, mg, n: int,
+                      h: float) -> dict:
+    """The distributed solve on one rank: the fused halo-plan PCG to the
+    end (eager), one iteration split by phase with its received bytes,
+    then the fused and the two-step schedules over ``TWO_STEP_ITERS``
+    iterations from the same start.  ``args``: the rank's views
+    (``local_args``).  Returns host tensors and numbers."""
+    import torch
+    from repro_torch.apps import fractional as pf
+    from repro_torch.core.comm import Comm
+    from repro_torch.kernels import ops
+    from repro_torch.obs.trace import phase_times
+    from repro_torch.solvers import graphs, krylov
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    comm = Comm()
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    dev = args[0].u_leaf.device
+    b = torch.ones((n * n // dshape.p,), dtype=torch.float32,
+                   device=dev) * h * h
+    solve_kw = dict(mode=DSOLVE_MODE, tol=SOLVE_ARGS["tol"],
+                    maxiter=SOLVE_ARGS["maxiter"],
+                    stag_window=SOLVE_ARGS["stag_window"], backend="cuda")
+    parts = pf.make_dist_solve_local(dshape, mg, args, comm, n, h,
+                                     fused=True, **solve_kw)
+    res = {"tcaps": parts["tcaps"]}
+
+    # the path: counts set to 0 just before, read just after
+    comm.barrier()
+    sync()
+    ops.reset_launch_counts()
+    comm.reset_counts()
+    syncs = graphs.HOST_SYNCS
+    t0 = time.perf_counter()
+    sol = parts["fn"](b)
+    sync()
+    res["solve_s"] = time.perf_counter() - t0
+    res["launches"] = ops.launch_counts()
+    res["recv_bytes_solve"] = comm.recv_bytes
+    res["host_syncs"] = graphs.HOST_SYNCS - syncs
+    res.update(iters=int(sol.iters), status=int(sol.status),
+               relres=float(sol.relres), converged=bool(sol.converged),
+               history=sol.res_history.cpu(), x=sol.x.cpu())
+
+    # one iteration, synchronized at every phase boundary, and its bytes
+    pre, apply_a = parts["precond"], parts["apply_a"]
+    st = krylov.pcg_init(apply_a, b, pre, comm=comm)
+    comm.barrier()
+    comm.reset_counts()
+    with phase_times(sync) as pt:
+        krylov._pcg_step(apply_a, pre, st.x, st.r, st.p, st.rz, comm=comm)
+    res["iteration_bytes"] = comm.recv_bytes
+    res["iteration_phase_ms"] = dict(pt)
+
+    # fused against two-step over TWO_STEP_ITERS iterations
+    steps = krylov.SEGMENT_STEPS
+    two = pf.make_dist_solve_local(dshape, mg, args, comm, n, h,
+                                   fused=False, **solve_kw)
+    for what, pp in (("fused", parts), ("two_step", two)):
+        state = krylov.pcg_init(pp["apply_a"], b, pp["precond"], comm=comm)
+        comm.barrier()
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(TWO_STEP_ITERS // steps):
+            state = krylov.pcg_segment(pp["apply_a"], b, state,
+                                       pp["precond"], tol=SOLVE_ARGS["tol"],
+                                       steps=steps,
+                                       maxiter=SOLVE_ARGS["maxiter"],
+                                       comm=comm)
+        sync()
+        res[f"{what}_ms_per_iter"] = (time.perf_counter() - t0) * 1e3 / \
+            TWO_STEP_ITERS
+        res[f"{what}_k"] = int(state.k)
+        res[f"{what}_x"] = state.x.cpu()
+    st = krylov.pcg_init(two["apply_a"], b, two["precond"], comm=comm)
+    comm.reset_counts()
+    krylov._pcg_step(two["apply_a"], two["precond"], st.x, st.r, st.p,
+                     st.rz, comm=comm)
+    res["two_step_iteration_bytes"] = comm.recv_bytes
+    res["max_memory_allocated"] = torch.cuda.max_memory_allocated() \
+        if on_card else 0
+    comm.barrier()
+    return res
+
+
+def to_reach(hist, level: float) -> int:
+    """The first iteration whose recurrence residual is at most ``level``
+    (-1 if none)."""
+    hit = (hist <= level).nonzero()
+    return int(hit[0]) if len(hit) else -1
+
+
+def dsolve_phase(torch, keep: dict, device: str = "cuda") -> dict:
+    """The §6.4 solve over ``DIST_P`` ranks on the one card: the parent
+    partitions the single-device solve's problem (``build_dist_problem``,
+    K compressed on the card, no second build of the extended operator)
+    and hands each of ``DIST_P`` spawned gloo ranks its views over CUDA
+    IPC; each runs the fused halo-plan PCG (``make_dist_solve_local``).
+    Holds every rank to the same iterations and status, the gathered
+    solution to the single-device one, the counted bytes of an iteration
+    to ``dist_solve_comm_bytes`` and the two-step schedule to the fused
+    one.  ``device="cpu"`` rehearses the phase without a card (no kernel
+    runs, so the launch check fails there)."""
+    from repro_torch.apps import fractional as pf
+    from repro_torch.solvers.krylov import SEGMENT_STEPS
+
+    t_phase = time.perf_counter()
+    on_card = device == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    prob, u1, iters1 = keep["prob"], keep["u"], keep["iters"]
+    n, h = prob["n"], prob["h"]
+    sync()
+    t0 = time.perf_counter()
+    dshape, mg, args = pf.build_dist_problem(prob, DIST_P, device=device)
+    sync()
+    t_build = time.perf_counter() - t0
+    log(f"[dsolve] build_dist_problem(n={n}, p={DIST_P}) {t_build:.3f} s: "
+        f"K depth {dshape.depth}, C-level {dshape.lc}, {n // DIST_P} grid "
+        f"rows per rank; V-cycle levels {mg.levels}, the first "
+        f"{mg.n_sharded} sharded; transposition caps "
+        f"{args[1]['tin_send'].shape[1]} in, "
+        f"{args[1]['tout_send'].shape[1]} out (of {n * n // DIST_P} rows)")
+    t0 = time.perf_counter()
+    ranks = run_ranks(torch, _dsolve_rank_work, (dshape, mg, n, h),
+                      [pf.local_args(dshape, mg, args, r)
+                       for r in range(DIST_P)], device)
+    t_ranks = time.perf_counter() - t0
+    del args                        # the ranks are gone: free the shares
+    if on_card:
+        torch.cuda.ipc_collect()
+
+    r0 = ranks[0]
+    model = pf.dist_solve_comm_bytes(dshape, mg, DSOLVE_MODE,
+                                     tcaps=r0["tcaps"], fused=True)
+    model_two = pf.dist_solve_comm_bytes(dshape, mg, DSOLVE_MODE,
+                                         fused=False)
+    steps_run = r0["host_syncs"] * SEGMENT_STEPS
+    packs_per_iter = 3        # the two transpositions + the merged exchange
+    for r, res in enumerate(ranks):
+        log(f"[dsolve] rank {r}: {res['iters']} iterations, status "
+            f"{res['status']}, relres {res['relres']:.3e}; solve "
+            f"{res['solve_s']:.3f} s ({res['host_syncs']} segments); "
+            f"received {res['recv_bytes_solve']} bytes in the solve; one "
+            f"iteration received {res['iteration_bytes']} bytes (model "
+            f"{model}), two-step {res['two_step_iteration_bytes']} (model "
+            f"{model_two}); halo_pack launches {res['launches']['halo_pack']}"
+            f"; max_memory_allocated {res['max_memory_allocated']}")
+        require(res["iters"] == r0["iters"] and
+                res["status"] == r0["status"] and
+                res["relres"] == r0["relres"] and
+                torch.equal(res["history"].nan_to_num(-1.0),
+                            r0["history"].nan_to_num(-1.0)),
+                f"rank {r} disagrees with rank 0: {res['iters']} "
+                f"iterations, status {res['status']}")
+        require(res["iteration_bytes"] == model,
+                f"rank {r} received {res['iteration_bytes']} bytes in one "
+                f"iteration, model {model}")
+        require(res["two_step_iteration_bytes"] == model_two,
+                f"rank {r} two-step iteration received "
+                f"{res['two_step_iteration_bytes']}, model {model_two}")
+        require(res["launches"]["halo_pack"] == packs_per_iter * steps_run,
+                f"rank {r} halo_pack launches {res['launches']['halo_pack']}"
+                f" != {packs_per_iter} x {steps_run} iterations run")
+    rate = {what: [to_reach(h, t) for t in (1e-6, 1e-7)]
+            for what, h in (("distributed", r0["history"]),
+                            ("single device", keep["history"]))}
+    tails = {what: [f"{v:.3e}" for v in h[max(0, k - 7):k + 1].tolist()]
+             for what, h, k in (("distributed", r0["history"], r0["iters"]),
+                                ("single device", keep["history"], iters1))}
+    log(f"[dsolve] iterations to reach 1e-6 and 1e-7: {rate}; the last 8 "
+        f"recurrence residuals: {tails}")
+    u = torch.cat([res["x"] for res in ranks]).reshape(n, n)
+    u_rel = ((u.double() - u1.cpu().double()).norm() /
+             u1.cpu().double().norm()).item()
+    fused_x = torch.cat([res["fused_x"] for res in ranks])
+    two_x = torch.cat([res["two_step_x"] for res in ranks])
+    two_rel = ((two_x.double() - fused_x.double()).norm() /
+               fused_x.double().norm()).item()
+    ms_iter = statistics.median(res["solve_s"] / res["iters"] * 1e3
+                                for res in ranks)
+    phases = {k: statistics.median(res["iteration_phase_ms"].get(k, 0.0)
+                                   for res in ranks)
+              for k in sorted(r0["iteration_phase_ms"])}
+    two_ms = {k: statistics.median(res[f"{k}_ms_per_iter"] for res in ranks)
+              for k in ("fused", "two_step")}
+    launches = {k: sum(res["launches"][k] for res in ranks)
+                for k in r0["launches"]}
+    log(f"[dsolve] fused {DSOLVE_MODE} PCG over {DIST_P} gloo ranks on one "
+        f"card, eager: {r0['iters']} iterations (single device "
+        f"{iters1}), status {r0['status']}, recurrence relres "
+        f"{r0['relres']:.3e}; {ms_iter:.3f} ms per iteration (median over "
+        f"ranks of solve time / iterations; {steps_run} iterations ran, "
+        f"the masked tail of the last segment included); gathered u vs "
+        f"the single-device solve {u_rel:.3e} (tol {DSOLVE_U_TOL:g})")
+    log("[dsolve] one iteration by phase (ms, synchronize at each phase "
+        "boundary, median over ranks; nested phases overlap): " +
+        ", ".join(f"{k}={v:.3f}" for k, v in phases.items()))
+    log(f"[dsolve] two-step schedule vs fused over {TWO_STEP_ITERS} "
+        f"iterations from the same start: iterate rel diff {two_rel:.3e} "
+        f"(tol {DSOLVE_U_TOL:g}); ms per iteration " +
+        ", ".join(f"{k}={v:.3f}" for k, v in two_ms.items()))
+    log(f"[dsolve] launches over the distributed solve (all ranks): "
+        f"{launches}")
+    require(r0["status"] == 0 and r0["converged"],
+            f"distributed solve status {r0['status']}")
+    require(abs(rate["distributed"][0] - rate["single device"][0]) <=
+            DSOLVE_RATE_SLACK and abs(r0["iters"] - iters1) <=
+            DSOLVE_ITER_SLACK,
+            f"distributed solve took {rate['distributed'][0]} iterations to "
+            f"1e-6 and {r0['iters']} in all, single device "
+            f"{rate['single device'][0]} and {iters1}")
+    require(bool(torch.isfinite(u).all()) and u_rel <= DSOLVE_U_TOL,
+            f"distributed u vs single device {u_rel:.3e}")
+    require(all(res["fused_k"] == res["two_step_k"] == TWO_STEP_ITERS
+                for res in ranks), "the schedules' segments stopped early")
+    require(two_rel <= DSOLVE_U_TOL, f"two-step vs fused {two_rel:.3e}")
+    require(launches["halo_pack"] > 0, "halo_pack was not launched on the "
+            "distributed solve")
+    t_phase = time.perf_counter() - t_phase
+    log(f"[dsolve] phase took {t_phase:.1f} s (build {t_build:.1f} s, "
+        f"ranks {t_ranks:.1f} s)")
+    return dict(iters=r0["iters"], single_iters=iters1, to_reach=rate,
+                status=r0["status"], relres=r0["relres"], u_rel=u_rel,
+                ms_per_iter=ms_iter, iterations_run=steps_run,
+                iteration_bytes=r0["iteration_bytes"], model_bytes=model,
+                two_step_iteration_bytes=r0["two_step_iteration_bytes"],
+                two_step_model_bytes=model_two,
+                solve_recv_bytes=r0["recv_bytes_solve"],
+                iteration_phase_ms=phases, schedules_ms_per_iter=two_ms,
+                two_step_rel=two_rel, tcaps=r0["tcaps"], launches=launches,
+                build_s=t_build, phase_s=t_phase,
+                max_memory_allocated=max(res["max_memory_allocated"]
+                                         for res in ranks))
 
 
 def main() -> int:
@@ -1879,7 +2165,7 @@ def main() -> int:
     for name in ("halo_pack", "batched_qr", "batched_svd"):
         require(dist["launches"][name] > 0,
                 f"{name} was not launched on the distributed path")
-    solve = solve_phase(torch, timer)
+    solve, keep = solve_phase(torch, timer)
     for name, n in solve["launches"].items():
         log(f"[kernels] {name}: {n} launches on the solve path")
     for name in ("batched_gemm", "coupling_mv", "batched_qr", "batched_svd"):
@@ -1888,6 +2174,10 @@ def main() -> int:
     cm = solve["routes"]["coupling_mv"]
     require(cm["general"] == 0,
             f"a solve-path coupling_mv launch took the general route: {cm}")
+    dsolve = dsolve_phase(torch, keep)
+    del keep
+    for name, n in dsolve["launches"].items():
+        log(f"[kernels] {name}: {n} launches on the distributed solve path")
     kernels = []
     for name in KERNELS:
         r = results[name]
@@ -1896,7 +2186,7 @@ def main() -> int:
             source=f"src/repro_torch/csrc/{name}.cu",
             replaces=REPLACES[name],
             launches=(main["launches"][name] + dist["launches"][name] +
-                      solve["launches"][name]),
+                      solve["launches"][name] + dsolve["launches"][name]),
             max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"]))
@@ -1917,8 +2207,8 @@ def main() -> int:
               **detail_qr_svd}
     ssummary = {k: v for k, v in solve.items() if k != "launches"}
     log(json.dumps({"main_path": summary, "distributed": dsummary,
-                    "solve": ssummary, "kernel_detail": detail,
-                    "card": smi}))
+                    "solve": ssummary, "distributed_solve": dsolve,
+                    "kernel_detail": detail, "card": smi}))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

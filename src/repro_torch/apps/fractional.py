@@ -1,5 +1,5 @@
 """2D variable-diffusivity integral fractional diffusion solver (paper §6.4),
-single device.
+on one device or over the ranks of a ``Comm``.
 
     L[u](x) = -2 int_{Omega u Omega_0} (u(y)-u(x)) a(x,y) / |y-x|^(2+2b) dy
 
@@ -17,29 +17,51 @@ Solver: ``repro_torch.solvers`` -- PCG (or GMRES) run in fixed-length
 segments, replayed from CUDA graphs on the card, preconditioned by
 geometric-multigrid V-cycles on ``gamma*C + diag(D)``.
 
-The distributed solve, the guard ladder (``solve_with_guards``) and the
-elastic solve are not ported yet (ROADMAP Queue 1 items 2, 6 and 7).
+Distributed (``build_dist_problem``, ``make_dist_solve``,
+``solve_distributed``): the operator is partitioned into ``p`` block rows
+and the grid into ``p`` row strips; each rank runs the whole iteration on
+its strip -- the H^2 matvec in tree order between two grid<->tree
+transpositions, the sharded stencil, the sharded V-cycle and ``psum`` dot
+products -- over a ``Comm``, its segments eagerly.  ``fused`` (DESIGN.md
+§12) makes each transposition one plan-compressed all-to-all with the
+stencil's row halo riding the inbound lanes, merges the H^2 exchange into
+one all-to-all and smooths the V-cycle on deep halos;
+``dist_solve_comm_bytes`` models the bytes a rank receives per iteration.
+
+The guard ladder (``solve_with_guards``) and the elastic solve are not
+ported yet (ROADMAP Queue 1 items 6 and 7).
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.comm import Comm
 from repro_torch.core.compression import compress
 from repro_torch.core.construction import construct_h2
+from repro_torch.core.dist import (DistH2Shape, _shard,
+                                   dist_h2_matvec_local, local_shard,
+                                   matvec_comm_bytes, merged_exchange_bytes,
+                                   partition_h2)
+from repro_torch.core.halo import (build_transpose_plan, transpose_a2a,
+                                   transpose_pack)
 from repro_torch.core.kernels_fn import (diffusivity_2d, fractional_kernel_2d,
                                          fractional_kernel_2d_positive)
 from repro_torch.core.matvec import h2_matvec
 from repro_torch.guard.status import worst_status
+from repro_torch.obs.trace import phase
 from repro_torch.solvers import graphs
 from repro_torch.solvers.krylov import gmres as _gmres
 from repro_torch.solvers.krylov import pcg as _pcg
-from repro_torch.solvers.mg import build_grid_mg, mg_precond_local
+from repro_torch.solvers.mg import (_apply_op as _mg_apply_op,
+                                    build_grid_mg, mg_halo_bytes,
+                                    mg_local_shard, mg_precond_local,
+                                    solver_hide_flops)
 
 
 def interior_grid(n: int) -> np.ndarray:
@@ -252,6 +274,289 @@ def solve(n: int, beta: float = 0.75, tol: float = 1e-8,
             "status": worst_status(res.status), "history": res.res_history,
             "prob": prob, "timings": timings,
             "host_syncs": graphs.HOST_SYNCS - syncs}
+
+
+# ----------------------------------------------------------------------
+# distributed solve (paper §6.4): every rank runs the whole iteration on
+# its strip -- H^2 matvec, sharded stencil, sharded V-cycle, psum dots
+# ----------------------------------------------------------------------
+
+def build_dist_problem(prob: Dict, p: int, n_cycles: int = 2, nu: int = 3,
+                       omega: float = 0.7, device="cuda"):
+    """Partition the fractional operator for ``p`` block rows on
+    ``device``.
+
+    Returns ``(dshape, mg, args)`` with ``args = (ddata, aux, mg_arrays)``
+    stacked for all ranks (``local_args`` cuts a rank's views).  ``aux``
+    carries the grid<->tree transposition maps, sharded in row strips like
+    the solver state: ``perm``/``unperm`` and, for ``p > 1``, the
+    all-to-all plans of both transpositions.  The operator's local part
+    ``D + gamma*C`` reuses the V-cycle's level-0 stencil arrays.
+    """
+    n = prob["n"]
+    dshape, ddata = partition_h2(prob["shape"], prob["data"], p,
+                                 device=device)
+    mg, mga = build_grid_mg(prob["kappa"], prob["d_diag"].reshape(n, n),
+                            prob["gamma"], prob["h"], n, p=p, nu=nu,
+                            omega=omega, n_cycles=n_cycles, device=device)
+    if p > 1 and not mg.sharded(0):
+        # power-of-two N = leaf*2^depth and p | n already imply
+        # n % 2p == 0 for every partitionable configuration
+        raise ValueError(f"grid side {n} too small to strip-shard over "
+                         f"p={p} ranks (n % 2p != 0)")
+
+    def i32(a):
+        return torch.as_tensor(np.asarray(a), dtype=torch.int32,
+                               device=device)
+
+    aux = {"perm": i32(prob["perm"]), "unperm": i32(prob["unperm"])}
+    if p > 1:
+        # all_to_all transposition plans of the fused iteration: each rank
+        # ships only the rows its peers need (vs the (p-1)*nloc rows of
+        # the all_gather two-step path); the C-stencil row halo rides the
+        # inbound round as extra lanes
+        _, tin_send, tin_take = build_transpose_plan(prob["perm"], p)
+        _, tout_send, tout_take = build_transpose_plan(prob["unperm"], p)
+        aux.update(tin_send=i32(tin_send), tin_take=i32(tin_take),
+                   tout_send=i32(tout_send), tout_take=i32(tout_take))
+    return dshape, mg, (ddata, aux, mga)
+
+
+def local_args(dshape: DistH2Shape, mg, args, rank: int):
+    """Rank ``rank``'s views of ``build_dist_problem``'s stacked ``args``
+    (no copies): its operator shard, its strips of the transposition maps
+    (``[p, cap]`` send plans) and its V-cycle strips."""
+    ddata, aux, mga = args
+    return (local_shard(dshape, ddata, rank),
+            {k: _shard(v, rank, dshape.p) for k, v in aux.items()},
+            mg_local_shard(mg, mga, rank))
+
+
+def _dist_apply_a(dshape: DistH2Shape, d, aux: Dict, mg, mga,
+                  x: torch.Tensor, comm: Comm, mode: str, n: int, h: float,
+                  schedule: str = "auto", backend: str = "cuda",
+                  fused: bool = False, hide: int = 0,
+                  tables: Optional[dict] = None,
+                  packs: Optional[tuple] = None) -> torch.Tensor:
+    """One rank's A u = h^2 (D + K + C) u; ``x``: its grid-order strip.
+
+    The H^2 kernel works in tree order: the grid<->tree transpositions
+    cross ranks.  Two-step (``fused=False``): one all_gather + local take
+    each way, and the stencil's one-row halo by two permutes.  Fused
+    (DESIGN.md §12): each transposition is ONE all-to-all on its plan
+    (``core.halo.build_transpose_plan``) shipping only the rows peers
+    reference, and the C-stencil's row halo rides the inbound round as
+    extra lanes, so the local term needs no collective of its own; ``hide
+    > 0`` also lowers the H^2 exchange to its merged single round.
+    ``tables`` caches the H^2 exchange's pack tables across calls,
+    ``packs`` holds the two transpositions' (``transpose_pack``; built
+    at each call when not given).
+    """
+    p, me = dshape.p, comm.rank
+    if fused and p > 1:
+        rows = n // p
+        x2d = x.reshape(rows, n)
+        with phase("solve/transpose-in"):
+            # lane r of the extra rows lands at rank r: our LAST row feeds
+            # rank me+1's top halo, our FIRST row rank me-1's bottom halo
+            extra = x.new_zeros((p, n))
+            if me + 1 < p:
+                extra[me + 1] = x2d[-1]
+            if me >= 1:
+                extra[me - 1] = x2d[0]
+            tin, tout = packs if packs is not None else (None, None)
+            xt, ex = transpose_a2a(x, aux["tin_send"], aux["tin_take"],
+                                   comm, extra=extra, backend=backend,
+                                   pack=tin)
+        ku_t = dist_h2_matvec_local(dshape, d, xt[:, None], comm, mode,
+                                    backend, schedule, hide, tables)[:, 0]
+        with phase("solve/transpose-out"):
+            ku, _ = transpose_a2a(ku_t, aux["tout_send"], aux["tout_take"],
+                                  comm, backend=backend, pack=tout)
+        with phase("solve/stencil"):
+            zero = x.new_zeros((1, n))
+            top = ex[me - 1:me] if me >= 1 else zero
+            bot = ex[me + 1:me + 2] if me <= p - 2 else zero
+            local = _mg_apply_op(mg, mga, 0, x2d, comm,
+                                 halo=(top, bot)).reshape(x.shape)
+            return (h * h) * (ku + local)
+    with phase("solve/transpose-in"):
+        xf = comm.all_gather(x) if p > 1 else x
+        xt = xf.index_select(0, aux["perm"])[:, None]
+    ku_t = dist_h2_matvec_local(dshape, d, xt, comm, mode, backend,
+                                schedule, 0, tables)[:, 0]
+    with phase("solve/transpose-out"):
+        kf = comm.all_gather(ku_t) if p > 1 else ku_t
+        ku = kf.index_select(0, aux["unperm"])
+    with phase("solve/stencil"):
+        u = x.reshape(n // p, n)
+        local = _mg_apply_op(mg, mga, 0, u, comm).reshape(x.shape)
+        return (h * h) * (ku + local)
+
+
+def _fused_default(fused: Optional[bool], mode: str) -> bool:
+    """Fused iteration default: on for the halo-plan comm modes (whose
+    merged lowering it completes), off for the allgather/ppermute
+    baselines -- forceable either way."""
+    return mode.startswith("halo-plan") if fused is None else bool(fused)
+
+
+def make_dist_solve_local(dshape: DistH2Shape, mg, args, comm: Comm, n: int,
+                          h: float, method: str = "pcg",
+                          mode: str = "halo-plan", tol: float = 1e-8,
+                          maxiter: int = 200, use_precond: bool = True,
+                          restart: int = 30, schedule: str = "auto",
+                          backend: str = "cuda",
+                          fused: Optional[bool] = None,
+                          stag_window: int = 30) -> Dict:
+    """One rank's solve on its ``args`` (``local_args`` of
+    ``build_dist_problem``), for an ``n x n`` grid of spacing ``h``.
+
+    Returns ``{"fn", "apply_a", "precond", "fused", "hide", "tcaps"}``:
+    ``fn(b) -> SolveResult`` with ``b`` the rank's grid-order strip
+    (``[n*n/p]``); ``apply_a``/``precond`` the rank's operator and
+    preconditioner (``precond`` None without ``use_precond``).  ``fused``
+    selects the DESIGN.md §12 iteration schedule (default: on for the
+    halo-plan comm modes); ``schedule``/``backend`` thread through to the
+    H^2 matvec (``core.dist``).
+    """
+    if method not in ("pcg", "gmres"):
+        raise ValueError(f"unknown method {method!r}")
+    d, aux, mga = args
+    fused = _fused_default(fused, mode)
+    hide = solver_hide_flops(mg) if fused else 0
+    bf16 = mode.endswith("-bf16")
+    tables: dict = {}
+    packs = (transpose_pack(aux["tin_send"], n),
+             transpose_pack(aux["tout_send"])) \
+        if fused and dshape.p > 1 else None
+
+    def apply_a(x: torch.Tensor) -> torch.Tensor:
+        return _dist_apply_a(dshape, d, aux, mg, mga, x, comm, mode, n, h,
+                             schedule, backend, fused, hide, tables, packs)
+
+    def precond(r: torch.Tensor) -> torch.Tensor:
+        return mg_precond_local(mg, mga, r, comm, fused=fused, bf16=bf16)
+
+    pre = precond if use_precond else None
+
+    def fn(b: torch.Tensor):
+        if method == "pcg":
+            return _pcg(apply_a, b, pre, tol=tol, maxiter=maxiter,
+                        stag_window=stag_window, comm=comm)
+        return _gmres(apply_a, b, pre, m=restart, tol=tol, maxiter=maxiter,
+                      comm=comm)
+
+    tcaps = (aux["tin_send"].shape[1], aux["tout_send"].shape[1]) \
+        if dshape.p > 1 else (0, 0)
+    return {"fn": fn, "apply_a": apply_a, "precond": pre, "fused": fused,
+            "hide": hide, "tcaps": tcaps}
+
+
+def make_dist_solve(prob: Dict, comm: Comm, method: str = "pcg",
+                    mode: str = "halo-plan", tol: float = 1e-8,
+                    maxiter: int = 200, use_precond: bool = True,
+                    restart: int = 30, n_cycles: int = 2, nu: int = 3,
+                    omega: float = 0.7, schedule: str = "auto",
+                    backend: str = "cuda", fused: Optional[bool] = None,
+                    stag_window: int = 30, device="cuda") -> Dict:
+    """This rank's whole fractional solve over ``comm``: partitions
+    ``prob`` for ``comm.p`` ranks on ``device`` (every rank builds the same
+    partition and keeps its views) and returns ``make_dist_solve_local``'s
+    dict plus ``dshape``, ``mg`` and ``args`` (the rank's views)."""
+    dshape, mg, args = build_dist_problem(prob, comm.p, n_cycles=n_cycles,
+                                          nu=nu, omega=omega, device=device)
+    args = local_args(dshape, mg, args, comm.rank)
+    parts = make_dist_solve_local(
+        dshape, mg, args, comm, prob["n"], prob["h"], method=method,
+        mode=mode, tol=tol, maxiter=maxiter, use_precond=use_precond,
+        restart=restart, schedule=schedule, backend=backend, fused=fused,
+        stag_window=stag_window)
+    parts.update(dshape=dshape, mg=mg, args=args)
+    return parts
+
+
+def solve_distributed(n: int, comm: Comm, beta: float = 0.75,
+                      tol: float = 1e-8, h2_tol: float = 1e-6,
+                      maxiter: int = 200, mode: str = "halo-plan",
+                      method: str = "pcg", use_precond: bool = True,
+                      construction: str = "cheb", schedule: str = "auto",
+                      fused: Optional[bool] = None, device="cuda",
+                      backend: str = "cuda", stag_window: int = 30) -> Dict:
+    """End-to-end distributed fractional-diffusion solve, run by every
+    rank of ``comm``: each builds the problem on ``device`` (the same bits
+    on every rank), keeps its shard and solves.
+
+    Returns this rank's strip of the solution ``u`` ([n/p, n], a tensor on
+    ``device``) and ``iters``, ``relres``, ``converged``, ``status`` and
+    ``history``, equal on every rank; ``prob``, ``parts``
+    (``make_dist_solve``), ``recv_bytes`` (received by this rank during
+    the solve) and ``solve_s``."""
+    dev = torch.device(device)
+    prob = FractionalProblem(n, beta=beta, h2_tol=h2_tol,
+                             construction=construction, device=device,
+                             backend=backend).build()
+    parts = make_dist_solve(prob, comm, method=method, mode=mode, tol=tol,
+                            maxiter=maxiter, use_precond=use_precond,
+                            schedule=schedule, backend=backend, fused=fused,
+                            stag_window=stag_window, device=device)
+    rows = n // comm.p
+    b = torch.ones((rows * n,), dtype=torch.float32, device=dev) * \
+        prob["h"] ** 2
+    before = comm.recv_bytes
+    _sync(dev)
+    t0 = time.perf_counter()
+    res = parts["fn"](b)
+    _sync(dev)
+    return {"u": res.x.reshape(rows, n), "iters": int(res.iters),
+            "relres": float(res.relres), "converged": bool(res.converged),
+            "status": worst_status(res.status), "history": res.res_history,
+            "prob": prob, "parts": parts,
+            "recv_bytes": comm.recv_bytes - before,
+            "solve_s": time.perf_counter() - t0}
+
+
+def dist_solve_comm_bytes(dshape: DistH2Shape, mg, mode: str = "halo-plan",
+                          bytes_per_el: int = 4,
+                          tcaps: Optional[Tuple[int, int]] = None,
+                          fused: Optional[bool] = None) -> int:
+    """Modeled per-rank bytes received by ONE distributed PCG iteration on
+    the fractional operator.
+
+    Two-step (``fused=False``): H^2 matvec exchange + the two grid<->tree
+    transposition all_gathers + the C-stencil row halo + the V-cycle
+    halos (``mg_halo_bytes``) + the three psum'd CG scalars.  Fused
+    (DESIGN.md §12): the branch-root gather + ONE merged H^2 all_to_all
+    (``merged_exchange_bytes``), the two plan-compressed transposition
+    all_to_alls (``tcaps`` = their per-peer row caps, from
+    ``make_dist_solve(...)["tcaps"]``; the inbound one carries the
+    stencil halo lanes), the fused V-cycle halos, and the psums."""
+    p = dshape.p
+    if p <= 1:
+        return 0
+    fused = _fused_default(fused, mode)
+    psums = 3 * (p - 1) * bytes_per_el
+    if fused and tcaps is not None:
+        if mode.startswith("halo-plan"):
+            # merged single-round H^2 exchange
+            k_lc = dshape.ranks[dshape.lc]
+            mv = (p - 1) * k_lc * bytes_per_el \
+                + merged_exchange_bytes(dshape, 1, mode, bytes_per_el)
+        else:
+            # allgather/ppermute keep their per-level exchange even when
+            # the transpositions and V-cycle are fused
+            mv = matvec_comm_bytes(dshape, 1, mode, bytes_per_el)
+        cap_in, cap_out = tcaps
+        # inbound lanes + the [p, n]-wide stencil-halo extra lanes
+        transpose = (p - 1) * (cap_in + mg.levels[0] + cap_out) \
+            * bytes_per_el
+        return mv + transpose + psums + mg_halo_bytes(
+            mg, bytes_per_el, fused=True, bf16=mode.endswith("-bf16"))
+    mv = matvec_comm_bytes(dshape, 1, mode, bytes_per_el)
+    transpose = 2 * (p - 1) * (dshape.n // p) * bytes_per_el
+    stencil = 2 * mg.levels[0] * bytes_per_el
+    return mv + transpose + stencil + mg_halo_bytes(mg, bytes_per_el) \
+        + psums
 
 
 def dense_reference_solution(n: int, beta: float = 0.75) -> np.ndarray:

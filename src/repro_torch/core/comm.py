@@ -6,8 +6,10 @@ recompression use -- a tiled ``all_gather`` (``lax.all_gather(...,
 tiled=True)``), ``ppermute`` (``lax.ppermute``) and ``all_to_all`` on the
 ``[p, capmax]`` row layout (``lax.all_to_all``, split and concat on axis
 0) -- each also in an async form that returns a ``Pending`` handle, so the
-§4.2 schedule can issue every exchange, compute, and only then wait.
-``rank`` is the counterpart of ``lax.axis_index``.
+§4.2 schedule can issue every exchange, compute, and only then wait; and
+the distributed solvers' ``psum`` (``lax.psum``), a sum in rank order that
+gives every rank the same bits.  ``rank`` is the counterpart of
+``lax.axis_index``.
 
 The transport is chosen once, from the group's backend:
 
@@ -155,6 +157,21 @@ class Comm:
 
     def all_to_all(self, buf: torch.Tensor) -> torch.Tensor:
         return self.all_to_all_async(buf).wait()
+
+    def psum(self, t: torch.Tensor) -> torch.Tensor:
+        """``lax.psum``: the sum of every rank's ``t``, the same bits on
+        every rank.  Each rank gathers all partials and adds them in rank
+        order itself: a solver's host reads a flag computed from such sums
+        once a segment, and ranks that read different flags would leave
+        the loop at different segments and hang (an ``all_reduce``
+        promises no bitwise agreement across ranks)."""
+        if self.p == 1:
+            return t
+        parts = self.all_gather(t.reshape(1, *t.shape))
+        out = parts[0]
+        for q in range(1, self.p):
+            out = out + parts[q]
+        return out
 
     def barrier(self) -> None:
         dist.barrier(group=self.group)

@@ -24,14 +24,19 @@ numpy, without a host copy of the operator.
 ``start_halo``/``land_halo``/``exchange`` issue and land one level's
 exchange over a ``Comm``; the send rows of all the level's offsets are
 packed by one ``ops.halo_pack_segments`` call.
-The solver's transposition plan (``build_transpose_plan``,
-``transpose_a2a``) is not ported yet.
+
+The distributed solve's grid<->tree transpositions (DESIGN.md §12) are one
+all-to-all each: ``build_transpose_plan`` (host numpy, the reference's
+``(cap, send_idx, take_idx)`` bit for bit, vectorized over the rows) says
+which local rows each rank owes each peer, and ``transpose_a2a`` packs
+them -- one ``halo_pack`` launch for all ``p`` lanes and their side-channel
+rows on the card -- ships them and takes the landed rows into place.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -330,3 +335,98 @@ def exchange(x: torch.Tensor, plan: HaloPlan, offsets: Sequence[int],
     """start + land in one go (no compute to overlap: the R-factor and
     projection-map exchanges of the compression sweeps)."""
     return land_halo(x, start_halo(x, plan, offsets, comm, bf16, backend))
+
+
+# ---------------------------------------------------------------------------
+# a cross-rank permutation as ONE all_to_all (the solver's fused
+# grid<->tree transposition rounds; DESIGN.md §12)
+# ---------------------------------------------------------------------------
+
+def build_transpose_plan(g: np.ndarray, p: int
+                         ) -> Tuple[int, np.ndarray, np.ndarray]:
+    """Host-side send/recv plan realizing the sharded gather
+    ``y[i] = x[g[i]]`` (both ``x`` and ``y`` in contiguous ``n/p`` row
+    strips) as ONE ``all_to_all`` instead of ``all_gather`` + take.
+
+    Sender ``s`` owes receiver ``r`` only the *unique* local rows of ``s``
+    that ``r``'s ``g``-slice references, padded to the global per-pair cap
+    so every lane has one shape.  Returns ``(cap, send_idx, take_idx)``:
+
+    ``cap``       per-(sender, receiver) row cap (>= 1)
+    ``send_idx``  [p*p, cap] int32, sharded over senders: rank ``s``'s
+                  ``[p, cap]`` slice holds, per receiver ``r``, the sorted
+                  local rows to pack into its lane (padding repeats row 0,
+                  never read on landing)
+    ``take_idx``  [p * (n//p)] int32, sharded over receivers: positions
+                  into the landed ``[p, cap]`` buffer (flattened) whose
+                  row ``s`` is the lane received from sender ``s``.
+    """
+    g = np.asarray(g, np.int64)
+    n = g.shape[0]
+    if n % p:
+        raise ValueError(f"transpose plan needs p | n ({n} % {p})")
+    nloc = n // p
+    recv = np.arange(n) // nloc
+    send = g // nloc
+    pair = send * p + recv                      # lane (sender, receiver)
+    key = pair * nloc + (g - send * nloc)
+    uniq = np.unique(key)                       # sorted by lane, then row
+    counts = np.bincount(uniq // nloc, minlength=p * p)
+    cap = max(1, int(counts.max()))
+    start = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    lane = uniq // nloc
+    send_idx = np.zeros((p * p, cap), np.int32)
+    send_idx[lane, np.arange(uniq.shape[0]) - start[lane]] = uniq % nloc
+    pos = np.searchsorted(uniq, key) - start[pair]
+    take_idx = (send * cap + pos).astype(np.int32)
+    return cap, send_idx, take_idx
+
+
+def transpose_pack(send_idx: torch.Tensor, extra: int = 0) -> PackPlan:
+    """The segment table that packs a rank's ``[p, cap + extra]``
+    all-to-all buffer in one ``halo_pack`` launch: lane ``r``'s ``cap``
+    planned rows of the strip (rows of one element), then, when ``extra``,
+    one row of ``extra`` elements of a second source ``[p, extra]``, its
+    row ``r``.  ``send_idx``: the rank's ``[p, cap]`` int32 slice."""
+    p, cap = send_idx.shape
+    width = cap + extra
+    segs = [Segment(0, send_idx[r], r * width, 1) for r in range(p)]
+    if extra:
+        lanes = torch.arange(p, dtype=torch.int32, device=send_idx.device)
+        segs += [Segment(1, lanes[r:r + 1], r * width + cap, extra)
+                 for r in range(p)]
+    return PackPlan(segs)
+
+
+def transpose_a2a(x: torch.Tensor, send_idx: torch.Tensor,
+                  take_idx: torch.Tensor, comm: Comm,
+                  extra: Optional[torch.Tensor] = None,
+                  backend: str = "cuda", pack: Optional[PackPlan] = None
+                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Apply a :func:`build_transpose_plan` permutation over ``comm``.
+
+    ``x``: the rank's [nloc] strip (float32); ``send_idx``/``take_idx``:
+    the rank's plan slices ([p, cap] / [nloc]).  ``extra`` optionally
+    appends per-receiver side-channel rows ``[p, e]`` onto the payload
+    lanes (the C-stencil row halo rides the solve's transpose-in round).
+    The lanes are packed by ``ops.halo_pack_segments`` (``pack``: the
+    table of :func:`transpose_pack`, built here when not given): one
+    launch on the card under ``backend="cuda"``, ``index_select`` per lane
+    otherwise -- the same gather, so the two agree bitwise.  Returns ``(y,
+    extra_landed)`` where ``extra_landed[s]`` is the extra row sender
+    ``s`` addressed to this rank (``None`` without ``extra``).
+    """
+    p, cap = send_idx.shape
+    e = 0 if extra is None else extra.shape[1]
+    if pack is None:
+        pack = transpose_pack(send_idx, e)
+    srcs = [x.contiguous()] + ([] if extra is None
+                               else [extra.to(x.dtype).contiguous()])
+    with phase("halo/pack"):
+        buf = torch.empty((p, cap + e), dtype=x.dtype, device=x.device)
+        kops.halo_pack_segments(pack, srcs, buf.view(-1), backend)
+    with phase("halo/round"):
+        land = comm.all_to_all(buf)
+    with phase("halo/land"):
+        y = land[:, :cap].reshape(p * cap).index_select(0, take_idx)
+    return y, (land[:, cap:] if extra is not None else None)

@@ -11,8 +11,10 @@ still holds: one host sync per segment, the port's one deviation from the
 reference's zero-sync loop.
 
 ``SegmentRunner`` drives one such segment function ``seg(*state) ->
-(state', flag)``.  On CPU tensors, or with ``graph=False``, it calls
-``seg`` eagerly.  On CUDA tensors it captures ``seg`` once into a
+(state', flag)``.  On CPU tensors, with ``graph=False``, or when the
+segment calls a ``Comm``'s collectives (the distributed solvers: gloo
+stages every payload through the host, which a graph cannot capture), it
+calls ``seg`` eagerly.  On CUDA tensors it captures ``seg`` once into a
 ``torch.cuda.CUDAGraph`` over static state buffers -- the graph ends by
 copying the new state into those buffers, so each replay advances the
 solve in place -- after one warm-up segment on a side stream, which builds
@@ -107,14 +109,20 @@ class SegmentRunner:
     captured programs live as long as it does); ``counter[name]`` is
     incremented at each capture.  ``graph=None`` captures on CUDA tensors and runs
     eagerly on CPU tensors; ``graph=True`` on CPU tensors raises.
+    ``collectives``: the segment calls a ``Comm``'s collectives, which gloo
+    stages through the host: it runs eagerly, and ``graph=True`` raises.
     """
 
     def __init__(self, key: tuple, seg: Callable,
                  state: Sequence[torch.Tensor], graph: Optional[bool],
-                 counter: Dict[str, int]):
+                 counter: Dict[str, int], collectives: bool = False):
         on_card = state[0].is_cuda
+        if graph and collectives:
+            raise ValueError("graph=True: a segment with collectives cannot "
+                             "be captured into a CUDA graph (gloo stages "
+                             "its payloads through the host)")
         if graph is None:
-            graph = on_card
+            graph = on_card and not collectives
         if graph and not on_card:
             raise ValueError("graph=True needs CUDA tensors")
         self.seg, self.graph = seg, bool(graph)

@@ -1,5 +1,5 @@
-"""Krylov solvers (the reference's ``repro/solvers/krylov.py``), single
-device.
+"""Krylov solvers (the reference's ``repro/solvers/krylov.py``), on one
+device or over the ranks of a ``Comm``.
 
 The reference runs each solver as one ``lax.while_loop`` program.  Torch
 has no device-side loop, so here each solver is a host loop over
@@ -13,6 +13,14 @@ Once the condition fails the carry is frozen exactly as the
 the reference's recurrence.  The host reads one flag per segment and no
 other value; the residual history is written through device indices.  On
 CUDA tensors a segment is captured once into a CUDA graph and replayed.
+
+Distributed (the reference's ``axis=``): every solver takes ``comm`` (a
+``core.comm.Comm``); ``b``, the iterates and ``apply_a``/``precond`` are
+then the rank's shard, and every dot product is summed over the ranks by
+``Comm.psum``, whose rank-order sum gives every rank the same bits, so all
+ranks read the same flag and leave the loop at the same segment.  A
+segment with collectives runs eagerly: gloo stages every payload through
+the host, which a CUDA graph cannot capture (``graph=True`` raises).
 
 Tolerance semantics (as the reference): ``tol`` is always **relative to
 ||b||** -- convergence is ``||r|| <= tol * ||b||``, ``relres`` and every
@@ -111,25 +119,36 @@ class PCGState:
     status: Optional[torch.Tensor] = None
 
 
-def _dot(u: torch.Tensor, v: torch.Tensor, dt=None) -> torch.Tensor:
-    """Global <u, v> over all elements.  ``dt`` (the fp64 escalation
-    hook): accumulate the products in that dtype."""
+def _psum(v: torch.Tensor, comm=None) -> torch.Tensor:
+    """``v`` summed over the ranks of ``comm`` (unchanged without one)."""
+    if comm is None or comm.p == 1:
+        return v
+    with phase("krylov/psum"):
+        return comm.psum(v)
+
+
+def _dot(u: torch.Tensor, v: torch.Tensor, dt=None, comm=None
+         ) -> torch.Tensor:
+    """Global <u, v> over all elements, summed over the ranks of ``comm``
+    when sharded.  ``dt`` (the fp64 escalation hook): accumulate the
+    products in that dtype."""
     if dt is not None:
         u = u.to(dt)
         v = v.to(dt)
-    return torch.sum(u * v)
+    return _psum(torch.sum(u * v), comm)
 
 
-def _norm(u: torch.Tensor, dt=None) -> torch.Tensor:
-    return torch.sqrt(_dot(u, u, dt))
+def _norm(u: torch.Tensor, dt=None, comm=None) -> torch.Tensor:
+    return torch.sqrt(_dot(u, u, dt, comm))
 
 
-def _cdot(u: torch.Tensor, v: torch.Tensor, dt=None) -> torch.Tensor:
+def _cdot(u: torch.Tensor, v: torch.Tensor, dt=None, comm=None
+          ) -> torch.Tensor:
     """Per-column <u_j, v_j> for [n, nv] blocks -> [nv]."""
     if dt is not None:
         u = u.to(dt)
         v = v.to(dt)
-    return torch.sum(u * v, dim=0)
+    return _psum(torch.sum(u * v, dim=0), comm)
 
 
 def _identity(r):
@@ -152,26 +171,27 @@ def _at(v: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
     return v.index_select(0, i.long().reshape(1))[0]
 
 
-def _pcg_step(apply_a, m, x, r, p, rz, sdt=None):
+def _pcg_step(apply_a, m, x, r, p, rz, sdt=None, comm=None):
     """One PCG iteration -- the shared body of ``pcg`` and ``pcg_segment``
     (identical op order keeps the two bitwise-equal).  Also returns
     ``pap`` for the indefiniteness guard.  ``sdt``: scalar-accumulation
     dtype (fp64 escalation); scalars are cast back to the vector dtype
-    before touching the iterates."""
+    before touching the iterates.  ``comm``: the three dot products are
+    summed over its ranks."""
     with phase("krylov/apply-A"):
         ap = apply_a(p)
     with phase("krylov/scalars"):
-        pap = _dot(p, ap, sdt)
+        pap = _dot(p, ap, sdt, comm)
         alpha = rz / torch.where(pap != 0, pap, 1.0)
         if sdt is not None:
             alpha = alpha.to(x.dtype)
         x = x + alpha * p
         r = r - alpha * ap
-        res = _norm(r, sdt)
+        res = _norm(r, sdt, comm)
     with phase("krylov/precond"):
         z = m(r)
     with phase("krylov/scalars"):
-        rz_new = _dot(r, z, sdt)
+        rz_new = _dot(r, z, sdt, comm)
         beta = rz_new / torch.where(rz != 0, rz, 1.0)
         if sdt is not None:
             beta = beta.to(x.dtype)
@@ -193,17 +213,17 @@ def _segments(maxiter: int, steps: int) -> int:
 def pcg_init(apply_a: Callable, b: torch.Tensor,
              precond: Optional[Callable] = None,
              x0: Optional[torch.Tensor] = None,
-             guard: bool = True) -> PCGState:
+             guard: bool = True, comm=None) -> PCGState:
     """Initial :class:`PCGState` for a segmented solve -- the same prologue
     as :func:`pcg` (``x0=None`` starts from ``r = b`` without an operator
-    application)."""
+    application).  ``comm``: see the module docstring."""
     g = bool(guard) and _GUARD_ENABLED
     m = precond if precond is not None else _identity
     x = torch.zeros_like(b) if x0 is None else x0
     r = b - apply_a(x) if x0 is not None else b
     z = m(r)
-    rz = _dot(r, z)
-    res = _norm(r)
+    rz = _dot(r, z, comm=comm)
+    res = _norm(r, comm=comm)
     if g:
         status = _code(torch.isfinite(res) & torch.isfinite(rz), STATUS_OK,
                        STATUS_NAN)
@@ -216,7 +236,7 @@ def pcg_init(apply_a: Callable, b: torch.Tensor,
 def pcg_segment(apply_a: Callable, b: torch.Tensor, state: PCGState,
                 precond: Optional[Callable] = None, tol: float = 1e-8,
                 steps: int = 10, maxiter: int = 200, guard: bool = True,
-                graph: Optional[bool] = None) -> PCGState:
+                graph: Optional[bool] = None, comm=None) -> PCGState:
     """Advance a PCG solve by at most ``steps`` iterations.
 
     The exact :func:`pcg` recurrence, which additionally stops after
@@ -226,12 +246,14 @@ def pcg_segment(apply_a: Callable, b: torch.Tensor, state: PCGState,
     monolithic ``pcg`` exactly.  ``guard``: carry the breakdown status
     (NaN/Inf, indefiniteness -- no stagnation window: the segment carries
     no residual history).  ``graph``: see ``solvers/graphs.py`` (default:
-    captured on CUDA tensors).  No host sync.
+    captured on CUDA tensors).  ``comm``: see the module docstring.  No
+    host sync.
     """
     g = bool(guard) and _GUARD_ENABLED
     m = precond if precond is not None else _identity
     steps, maxiter = int(steps), int(maxiter)
-    thr = torch.as_tensor(tol, dtype=b.dtype, device=b.device) * _norm(b)
+    thr = torch.as_tensor(tol, dtype=b.dtype, device=b.device) * \
+        _norm(b, comm=comm)
     status = state.status if state.status is not None else \
         torch.zeros((), dtype=torch.int32, device=b.device)
 
@@ -241,7 +263,8 @@ def pcg_segment(apply_a: Callable, b: torch.Tensor, state: PCGState,
             active = (k < k_stop) & (res > thr)
             if g:
                 active = active & (status == STATUS_OK)
-            x2, r2, p2, rz2, res2, pap = _pcg_step(apply_a, m, x, r, p, rz)
+            x2, r2, p2, rz2, res2, pap = _pcg_step(apply_a, m, x, r, p, rz,
+                                                   comm=comm)
             status2 = status
             if g:
                 with phase("krylov/guard"):
@@ -256,7 +279,8 @@ def pcg_segment(apply_a: Callable, b: torch.Tensor, state: PCGState,
     runner = SegmentRunner(("pcg_segment", (apply_a, precond),
                             (steps, maxiter, g)), seg,
                            (state.k, state.x, state.r, state.p, state.rz,
-                            state.res, status, thr), graph, TRACE_COUNTS)
+                            state.res, status, thr), graph, TRACE_COUNTS,
+                           collectives=comm is not None)
     runner.run()
     k, x, r, p, rz, res, status, _ = runner.result()
     return PCGState(k=k, x=x, r=r, p=p, rz=rz, res=res, status=status)
@@ -266,7 +290,7 @@ def pcg(apply_a: Callable, b: torch.Tensor,
         precond: Optional[Callable] = None, tol: float = 1e-8,
         maxiter: int = 200, x0: Optional[torch.Tensor] = None,
         guard: bool = True, stag_window: int = 30, scalar_dtype=None,
-        graph: Optional[bool] = None) -> SolveResult:
+        graph: Optional[bool] = None, comm=None) -> SolveResult:
     """Preconditioned conjugate gradients in segments of
     ``SEGMENT_STEPS`` iterations.
 
@@ -280,7 +304,8 @@ def pcg(apply_a: Callable, b: torch.Tensor,
     every guard op out.  ``scalar_dtype``: accumulate the dot-product
     scalars in this dtype (the fp64 escalation rung; vector iterates keep
     ``b``'s dtype).  ``graph``: see ``solvers/graphs.py`` (default:
-    captured on CUDA tensors).  One host sync per segment.
+    captured on CUDA tensors).  ``comm``: see the module docstring.  One
+    host sync per segment.
     """
     g = bool(guard) and _GUARD_ENABLED
     sdt = scalar_dtype
@@ -288,14 +313,14 @@ def pcg(apply_a: Callable, b: torch.Tensor,
     m = precond if precond is not None else _identity
     steps, maxiter = SEGMENT_STEPS, int(maxiter)
     dev = b.device
-    b_norm = _norm(b, sdt)
+    b_norm = _norm(b, sdt, comm)
     bn_safe = torch.where(b_norm > 0, b_norm, 1.0)
     thr = torch.as_tensor(tol, dtype=b_norm.dtype, device=dev) * b_norm
     x = torch.zeros_like(b) if x0 is None else x0
     r = b - apply_a(x) if x0 is not None else b
     z = m(r)
-    rz = _dot(r, z, sdt)
-    res = _norm(r, sdt)
+    rz = _dot(r, z, sdt, comm)
+    res = _norm(r, sdt, comm)
     hist = torch.full((maxiter + 1,), float("nan"), dtype=b.dtype,
                       device=dev)
     hist[0] = cast(res / bn_safe)
@@ -315,7 +340,7 @@ def pcg(apply_a: Callable, b: torch.Tensor,
         for _ in range(steps):
             active = cond(k, res, status, thr)
             x2, r2, p2, rz2, res2, pap = _pcg_step(apply_a, m, x, r, p, rz,
-                                                   sdt)
+                                                   sdt, comm)
             with phase("krylov/scalars"):
                 k1 = k + 1
                 kc = torch.clamp(k1, max=maxiter)    # in range when frozen
@@ -340,7 +365,7 @@ def pcg(apply_a: Callable, b: torch.Tensor,
     runner = SegmentRunner(("pcg", (apply_a, precond),
                             (maxiter, steps, g, sdt, W)), seg,
                            (k, x, r, z, rz, res, hist, status, bn_safe, thr),
-                           graph, TRACE_COUNTS)
+                           graph, TRACE_COUNTS, collectives=comm is not None)
     for _ in range(_segments(maxiter, steps)):
         if not runner.step():
             break
@@ -359,7 +384,7 @@ def block_cg(apply_a: Callable, b: torch.Tensor,
              precond: Optional[Callable] = None, tol: float = 1e-8,
              maxiter: int = 200, x0: Optional[torch.Tensor] = None,
              guard: bool = True, stag_window: int = 30, scalar_dtype=None,
-             graph: Optional[bool] = None) -> SolveResult:
+             graph: Optional[bool] = None, comm=None) -> SolveResult:
     """Batched multi-RHS CG: ``b`` is ``[n, nv]``, ``apply_a`` maps
     ``[n, nv] -> [n, nv]`` (the H^2 matvec's native multi-vector form).
 
@@ -372,7 +397,7 @@ def block_cg(apply_a: Callable, b: torch.Tensor,
 
     ``guard``: per-column breakdown status (``SolveResult.status`` is
     ``[nv]``); a broken column freezes while healthy columns keep running.
-    ``scalar_dtype``, ``graph``: see :func:`pcg`.
+    ``scalar_dtype``, ``graph``, ``comm``: see :func:`pcg`.
     """
     g = bool(guard) and _GUARD_ENABLED
     sdt = scalar_dtype
@@ -380,14 +405,14 @@ def block_cg(apply_a: Callable, b: torch.Tensor,
     m = precond if precond is not None else _identity
     steps, maxit = SEGMENT_STEPS, int(maxiter)
     dev = b.device
-    b_norm = torch.sqrt(_cdot(b, b, sdt))                 # [nv]
+    b_norm = torch.sqrt(_cdot(b, b, sdt, comm))           # [nv]
     bn_safe = torch.where(b_norm > 0, b_norm, 1.0)
     thr = torch.as_tensor(tol, dtype=b_norm.dtype, device=dev) * b_norm
     x = torch.zeros_like(b) if x0 is None else x0
     r = b - apply_a(x) if x0 is not None else b
     z = m(r)
-    rz = _cdot(r, z, sdt)
-    res = torch.sqrt(_cdot(r, r, sdt))
+    rz = _cdot(r, z, sdt, comm)
+    res = torch.sqrt(_cdot(r, r, sdt, comm))
     nv = b.shape[1]
     hist = torch.full((maxit + 1, nv), float("nan"), dtype=b.dtype,
                       device=dev)
@@ -411,15 +436,15 @@ def block_cg(apply_a: Callable, b: torch.Tensor,
             go = (k < maxit) & active.any()
             with phase("krylov/apply-A"):
                 ap = apply_a(p)
-            pap = _cdot(p, ap, sdt)
+            pap = _cdot(p, ap, sdt, comm)
             alpha = torch.where(
                 active, cast(rz / torch.where(pap != 0, pap, 1.0)), 0.0)
             x2 = x + alpha[None, :] * p
             r2 = torch.where(active[None, :], r - alpha[None, :] * ap, r)
-            res2 = torch.sqrt(_cdot(r2, r2, sdt))
+            res2 = torch.sqrt(_cdot(r2, r2, sdt, comm))
             with phase("krylov/precond"):
                 z = m(r2)
-            rz2 = torch.where(active, _cdot(r2, z, sdt), rz)
+            rz2 = torch.where(active, _cdot(r2, z, sdt, comm), rz)
             beta = torch.where(
                 active, cast(rz2 / torch.where(rz != 0, rz, 1.0)), 0.0)
             p2 = torch.where(active[None, :], z + beta[None, :] * p, p)
@@ -448,7 +473,8 @@ def block_cg(apply_a: Callable, b: torch.Tensor,
     runner = SegmentRunner(("block_cg", (apply_a, precond),
                             (maxit, steps, g, sdt, W)), seg,
                            (k, x, r, z, rz, res, hist, iters, status,
-                            bn_safe, thr), graph, TRACE_COUNTS)
+                            bn_safe, thr), graph, TRACE_COUNTS,
+                           collectives=comm is not None)
     for _ in range(_segments(maxit, steps)):
         if not runner.step():
             break
@@ -461,13 +487,14 @@ def block_cg(apply_a: Callable, b: torch.Tensor,
                        status=status)
 
 
-def _arnoldi(op: Callable, v0: torch.Tensor, m: int):
+def _arnoldi(op: Callable, v0: torch.Tensor, m: int, comm=None):
     """m steps of Arnoldi with two-pass classical Gram-Schmidt.
 
     Returns (V [m+1, n...], H [m+1, m]).  The CGS projections are
     vectorized over the whole basis with an ``i <= j`` mask, so every step
     has the same shapes; the second pass restores the orthogonality
-    one-pass CGS loses in f32.  Happy breakdown (``h_{j+1,j} ~ 0``) zeroes
+    one-pass CGS loses in f32.  ``comm``: the projections and norms are
+    summed over its ranks.  Happy breakdown (``h_{j+1,j} ~ 0``) zeroes
     the next basis vector, which leaves the least-squares solve well-posed.
     """
     dims = tuple(range(1, v0.dim() + 1))
@@ -476,7 +503,7 @@ def _arnoldi(op: Callable, v0: torch.Tensor, m: int):
     ar = torch.arange(m + 1, device=v0.device)
 
     def vdot_all(V, w):
-        return torch.sum(V * w[None], dim=dims)          # [m+1]
+        return _psum(torch.sum(V * w[None], dim=dims), comm)   # [m+1]
 
     for j in range(m):
         with phase("krylov/apply-A"):
@@ -487,7 +514,7 @@ def _arnoldi(op: Callable, v0: torch.Tensor, m: int):
         h2 = vdot_all(V, w) * mask                       # CGS second pass
         w = w - torch.tensordot(h2, V, dims=1)
         h = h1 + h2
-        hn = _norm(w)
+        hn = _norm(w, comm=comm)
         v_next = torch.where(hn > 0, w / torch.where(hn > 0, hn, 1.0), 0.0)
         V[j + 1] = v_next
         H[:, j] = torch.where(ar == j + 1, hn, h)
@@ -513,7 +540,7 @@ def gmres(apply_a: Callable, b: torch.Tensor,
           precond: Optional[Callable] = None, m: int = 30,
           tol: float = 1e-8, maxiter: int = 200,
           x0: Optional[torch.Tensor] = None, guard: bool = True,
-          graph: Optional[bool] = None) -> SolveResult:
+          graph: Optional[bool] = None, comm=None) -> SolveResult:
     """Restarted GMRES(m), left-preconditioned; one restart per segment.
 
     Each restart runs exactly ``m`` Arnoldi steps on ``M^{-1} A``, solves
@@ -527,19 +554,20 @@ def gmres(apply_a: Callable, b: torch.Tensor,
     ``STATUS_BREAKDOWN`` when a restart's least-squares update turned
     non-finite, ``STATUS_NAN`` for a non-finite initial residual, and
     ``STATUS_STAGNATION`` when the accept-only-improving restart logic
-    ended the solve without convergence.  ``graph``: see :func:`pcg`.
+    ended the solve without convergence.  ``graph``, ``comm``: see
+    :func:`pcg`.
     """
     g_on = bool(guard) and _GUARD_ENABLED
     mp = precond if precond is not None else _identity
     m = int(m)
     n_restarts = max(1, -(-int(maxiter) // m))
     dev = b.device
-    b_norm = _norm(b)
+    b_norm = _norm(b, comm=comm)
     bn_safe = torch.where(b_norm > 0, b_norm, 1.0)
     thr = torch.as_tensor(tol, dtype=b.dtype, device=dev) * b_norm
     x = torch.zeros_like(b) if x0 is None else x0
     r = b - apply_a(x) if x0 is not None else b
-    res = _norm(r)
+    res = _norm(r, comm=comm)
     hist = torch.full((n_restarts + 1,), float("nan"), dtype=b.dtype,
                       device=dev)
     hist[0] = res / bn_safe
@@ -563,10 +591,10 @@ def gmres(apply_a: Callable, b: torch.Tensor,
         active = cond(k, res_old, progress, thr)
         with phase("krylov/precond"):
             z = mp(r)
-        beta = _norm(z)
+        beta = _norm(z, comm=comm)
         beta_safe = torch.where(beta > 0, beta, 1.0)
         with phase("krylov/arnoldi"):
-            V, H = _arnoldi(op, z / beta_safe, m)
+            V, H = _arnoldi(op, z / beta_safe, m, comm)
         # min_y ||beta e1 - H y||: ridge-regularized normal equations keep
         # the solve well-posed through happy breakdown (zero H columns)
         e1 = torch.cat([beta.reshape(1).to(b.dtype), b.new_zeros(m)])
@@ -576,7 +604,7 @@ def gmres(apply_a: Callable, b: torch.Tensor,
                                                 device=b.device), H.T @ e1)
         x_new = x + torch.tensordot(y, V[:m], dims=1)
         r_new = b - apply_a(x_new)
-        res_new = _norm(r_new)
+        res_new = _norm(r_new, comm=comm)
         # accept only improving restarts: at the dtype's stagnation floor
         # the correction is pure rounding noise and must not grow ||r||
         better = res_new < res_old
@@ -604,7 +632,8 @@ def gmres(apply_a: Callable, b: torch.Tensor,
     runner = SegmentRunner(("gmres", (apply_a, precond), (m, n_restarts,
                                                           g_on)), seg,
                            (k, x, r, res, hist, progress, status, b,
-                            bn_safe, thr), graph, TRACE_COUNTS)
+                            bn_safe, thr), graph, TRACE_COUNTS,
+                           collectives=comm is not None)
     for _ in range(n_restarts):
         if not runner.step():
             break

@@ -370,9 +370,17 @@ def test_mg_stencil_matches_reference():
 
 
 def test_build_grid_mg_distributed_not_ported():
+    """The sharded V-cycle is ported: ``p = 2`` builds the row-strip
+    pyramid (every level of n = 8 sharded, with its deep-halo strips),
+    and a ``p`` that does not divide n raises as in the reference
+    (``tests/test_torch_dist_solve.py`` holds it to the reference)."""
     kappa, d, _ = _mg_inputs(8)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        pmg.build_grid_mg(kappa, d, 1.0, 0.25, 8, p=2, device="cpu")
+    mg, arrs = pmg.build_grid_mg(kappa, d, 1.0, 0.25, 8, p=2, device="cpu")
+    assert mg.p == 2 and mg.n_sharded == len(mg.levels) == 2
+    assert [tuple(t.shape) for t in arrs.hc] == [(2 * (4 + 6), 6, 8),
+                                                 (2 * (2 + 6), 6, 4)]
+    with pytest.raises(ValueError, match="not divisible"):
+        pmg.build_grid_mg(kappa, d, 1.0, 0.25, 8, p=3, device="cpu")
 
 
 # ---------------------------------------------------------------------------
