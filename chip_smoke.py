@@ -51,7 +51,15 @@ V-cycle, rank-order psums; eager), every rank held to the same
 iterations and status, the gathered u to the single-device one (1e-4),
 an iteration's received bytes to ``dist_solve_comm_bytes``, with one
 iteration split by phase, and the two-step schedule held to the fused
-one over 30 iterations.
+one over 30 iterations; then the sketch path (``[sketch]``): K of the
+§6.4 problem at n = 512 by ``construct_h2(method="sketch")``, split by
+phase, against 512 exact float64 rows, its bases' orthogonality,
+``solve(128, construction="sketch")`` with graphs, and the black box
+``construct_from_matvec`` of A = B B at N = 16,384; then each QR/SVD
+shape of the construction on its recorded input against its plain
+version and beside ``torch.linalg``, the same sketches' bases on the
+plain backend, the card's Gaussians against the CPU's bitwise, and the
+distance to the ``[solve]`` phase's cheb-built K.
 Launch counts are reset just before each path and read just after (graph
 replays launch kernels without their wrappers: logged apart).
 Any failure raises; the last line is the device JSON only on success.
@@ -636,34 +644,53 @@ def qr_rank_deficient_question(torch, kbq, ref, seeds: int = 12) -> None:
             f"{worst['kernel/(u kappa)']:.2f} units of u*kappa")
 
 
-def compress_launch_shapes(torch, shape, data) -> dict:
-    """Every QR and SVD launch of one warm ``compress(tol=1e-3)``, counted
-    by (entry, shape, contiguous): the wrappers are wrapped for one call."""
+def record_qr_svd(torch, fn, keep_inputs: bool = False) -> tuple:
+    """Run ``fn()`` with every QR and SVD launch counted by (entry, shape,
+    contiguous) -- entries ``qr``, ``qr_r``, ``svd`` (with V^T),
+    ``svd_u`` (U and sigma) and ``svals`` (sigma only, U unpolished) --
+    and, with ``keep_inputs``, a copy of each key's first input.  Returns
+    ``(counts, inputs, fn's result)``: the wrappers are wrapped for the
+    one call."""
     from collections import Counter
-    from repro_torch.core.compression import compress
     from repro_torch.kernels import batched_qr as kbq
     from repro_torch.kernels import batched_svd as kbs
 
     seen: Counter = Counter()
+    inputs: dict = {}
     launch_qr, svd = kbq._launch, kbs.batched_svd
 
+    def note(key, a):
+        seen[key] += 1
+        if keep_inputs and key not in inputs:
+            inputs[key] = a.clone()
+
     def rec_qr(a, want_q, route, force_global=False):
-        seen[("qr" if want_q else "qr_r", tuple(a.shape),
-              a.is_contiguous())] += 1
+        note(("qr" if want_q else "qr_r", tuple(a.shape),
+              a.is_contiguous()), a)
         return launch_qr(a, want_q, route, force_global)
 
     def rec_svd(a, **kw):
-        seen[("svd" if kw.get("want_vt", True) else "svd_u",
-              tuple(a.shape), a.is_contiguous())] += 1
+        entry = "svd" if kw.get("want_vt", True) else \
+            "svd_u" if kw.get("polish", True) else "svals"
+        note((entry, tuple(a.shape), a.is_contiguous()), a)
         return svd(a, **kw)
 
     kbq._launch, kbs.batched_svd = rec_qr, rec_svd
     try:
-        compress(shape, data, tol=1e-3, backend="cuda")
+        out = fn()
         torch.cuda.synchronize()
     finally:
         kbq._launch, kbs.batched_svd = launch_qr, svd
-    return dict(seen)
+    return dict(seen), inputs, out
+
+
+def compress_launch_shapes(torch, shape, data) -> dict:
+    """Every QR and SVD launch of one warm ``compress(tol=1e-3)``, counted
+    by (entry, shape, contiguous)."""
+    from repro_torch.core.compression import compress
+
+    return record_qr_svd(torch, lambda: compress(shape, data, tol=1e-3,
+                                                 backend="cuda"))[0]
 
 
 def compress_shape_timings(torch, timer, shape, data) -> list:
@@ -1541,6 +1568,36 @@ def iteration_split(torch, apply_a, pre, b, steps: int) -> dict:
     return split
 
 
+def tally_start() -> tuple:
+    """The launch tallies ``launches_that_ran`` counts from."""
+    from repro_torch.solvers import graphs
+    return (graphs.launch_tally(), dict(graphs.CAPTURED_LAUNCHES),
+            dict(graphs.REPLAYED_LAUNCHES))
+
+
+def launches_that_ran(start: tuple) -> tuple:
+    """Launches since ``start`` (``tally_start()``): the wrappers' counts,
+    less their calls while a CUDA graph was captured (recorded, not run),
+    plus the graph replays' (no wrapper sees those).  Returns (per kernel,
+    per kernel and route, the three tallies)."""
+    from repro_torch.solvers import graphs
+    counted0, captured0, replayed0 = start
+    counted = {k: v - counted0.get(k, 0)
+               for k, v in graphs.launch_tally().items()}
+    captured = {k: graphs.CAPTURED_LAUNCHES[k] - captured0.get(k, 0)
+                for k in counted}
+    replayed = {k: graphs.REPLAYED_LAUNCHES[k] - replayed0.get(k, 0)
+                for k in counted}
+    ran = {k: counted[k] - captured[k] + replayed[k] for k in counted}
+    routes: dict = {}
+    for k, v in ran.items():
+        if "/" in k:
+            name, route = k.split("/")
+            routes.setdefault(name, {})[route] = v
+    return ({k: v for k, v in ran.items() if "/" not in k}, routes,
+            dict(wrappers=counted, captured=captured, replayed=replayed))
+
+
 def solve_phase(torch, timer, n: int = SOLVE_N, device: str = "cuda"
                 ) -> tuple:
     """``repro_torch.apps.fractional.solve(n)`` on the card with the kernels
@@ -1560,7 +1617,7 @@ def solve_phase(torch, timer, n: int = SOLVE_N, device: str = "cuda"
     so the launch checks fail there)."""
     from repro_torch.apps import fractional as pf
     from repro_torch.kernels import ops
-    from repro_torch.solvers import graphs, krylov
+    from repro_torch.solvers import krylov
 
     on_card = device == "cuda"
     sync = torch.cuda.synchronize if on_card else (lambda: None)
@@ -1569,29 +1626,15 @@ def solve_phase(torch, timer, n: int = SOLVE_N, device: str = "cuda"
         torch.cuda.reset_peak_memory_stats()
 
     ops.reset_launch_counts()
-    captured0 = dict(graphs.CAPTURED_LAUNCHES)
-    replayed0 = dict(graphs.REPLAYED_LAUNCHES)
+    start = tally_start()
     captures0 = dict(krylov.TRACE_COUNTS)
     sync()
     t0 = time.perf_counter()
     res = pf.solve(n, device=device, backend="cuda", **SOLVE_ARGS)
     sync()
     t_total = time.perf_counter() - t0
-    # the solve path ends here.  Launches that ran: the wrappers' counts,
-    # less their calls while a graph was captured (recorded, not run),
-    # plus the launches the graph replays made (no wrapper sees those)
-    counted = graphs.launch_tally()
-    captured = {k: graphs.CAPTURED_LAUNCHES[k] - captured0.get(k, 0)
-                for k in counted}
-    replayed = {k: graphs.REPLAYED_LAUNCHES[k] - replayed0.get(k, 0)
-                for k in counted}
-    ran = {k: counted[k] - captured[k] + replayed[k] for k in counted}
-    launches = {k: v for k, v in ran.items() if "/" not in k}
-    routes: dict = {}
-    for k, v in ran.items():
-        if "/" in k:
-            name, route = k.split("/")
-            routes.setdefault(name, {})[route] = v
+    # the solve path ends here
+    launches, routes, tally = launches_that_ran(start)
     captures = {k: v - captures0[k] for k, v in krylov.TRACE_COUNTS.items()
                 if v != captures0[k]}
     peak = torch.cuda.max_memory_allocated() if on_card else 0
@@ -1657,9 +1700,9 @@ def solve_phase(torch, timer, n: int = SOLVE_N, device: str = "cuda"
         f"the kernels' launches) per eager call: {out_ops}")
     log(f"[solve] launches that ran on the solve path (build included): "
         f"{launches}; by route: {routes}; segment captures {captures}; of "
-        f"them: the wrappers' counts {counted}, less the calls recorded "
-        f"while capturing {captured}, plus the launches replayed from the "
-        f"graphs {replayed}")
+        f"them: the wrappers' counts {tally['wrappers']}, less the calls "
+        f"recorded while capturing {tally['captured']}, plus the launches "
+        f"replayed from the graphs {tally['replayed']}")
 
     out = dict(n=n, iters=res["iters"], relres=res["relres"],
                true_relres=res["true_relres"],
@@ -1672,8 +1715,7 @@ def solve_phase(torch, timer, n: int = SOLVE_N, device: str = "cuda"
                solve_s=res["timings"]["solve"], host_syncs=res["host_syncs"],
                call_s=t_total, max_memory_allocated=peak, ranks=shape.ranks,
                launches=launches, routes=routes,
-               launch_tally=dict(wrappers=counted, captured=captured,
-                                 replayed=replayed),
+               launch_tally=tally,
                fp32_first=dict(iters=runs[0][1]["iters"],
                                relres=runs[0][1]["relres"],
                                status=runs[0][1]["status"]))
@@ -2095,6 +2137,353 @@ def dsolve_phase(torch, keep: dict, device: str = "cuda") -> dict:
                                          for res in ranks))
 
 
+# ---------------------------------------------------------------------------
+# sketch phase: the on-device sketch construction (repro_torch.sketch)
+# ---------------------------------------------------------------------------
+
+SKETCH_N = 512                 # K of the §6.4 problem, N = 262,144, uncut
+SKETCH_OPTS = dict(tol=1e-4, max_rank=64, oversample=10, seed=0, chunk=256,
+                   backend="cuda")
+SKETCH_ROWS_TOL = 1e-3         # the reference's acceptance at tol 1e-4
+SKETCH_ORTH_TOL = 1e-4
+SKETCH_PLAIN_TOL = 1e-3        # torch-backend bases' operator vs kernels'
+SKETCH_SOLVE_N = 128           # n = 512 waits on a fused sampler (ROADMAP)
+SKETCH_SOLVE_ARGS = dict(beta=0.75, h2_tol=1e-6, tol=1e-8, maxiter=500,
+                         stag_window=60)
+BB_SIDE = 128                  # B: the paper's 2D set at N = 16,384
+BB_TOL = 5e-3                  # the reference's A = B B threshold
+SHAPE_TOL = 1e-4               # a QR/SVD kernel vs its plain version
+
+
+def sketch_shape_checks(torch, timer, seen: dict, inputs: dict) -> list:
+    """Each distinct QR / SVD launch of the sketch construction, on the
+    input it had there: the kernel on its planned route against the plain
+    version (QR: R^T R, Q R against A and Q^T Q; SVD: sigma and
+    U S U^T = (A A^T)^(1/2), both free of the factors' signs; each
+    relative to the largest entry of the batch, the scale the rank picks
+    read), then the kernel's ms on its route, on the general kernel
+    (where its shared memory fits), the bound and ``torch.linalg``'s ms
+    (one call).  The SVD's plain version runs in float64: in float32
+    cuSOLVER's sigma is itself up to 4e-5 off on these inputs (logged),
+    more than the kernel's."""
+    from repro_torch.kernels import batched_qr as kbq
+    from repro_torch.kernels import batched_svd as kbs
+    from repro_torch.kernels import ref
+
+    def rel(got, want):
+        return ((got.double() - want.double()).abs().max() /
+                want.double().abs().max().clamp_min(1e-30)).item()
+
+    rows = []
+    for key, count in sorted(seen.items(),
+                             key=lambda kv: (kv[0][0], kv[0][1])):
+        entry, shp, _ = key
+        a = inputs[key]
+        nb, n, k = shp
+        kn = min(n, k)
+        f32 = None
+        if entry in ("qr", "qr_r"):
+            want_q = entry == "qr"
+            route = kbq.qr_plan(n, k, want_q, nb=nb)
+            fits_general = True
+            if want_q:
+                q, r = kbq.batched_qr(a, route=route)
+                qp, rp = ref.batched_qr(a)
+                err = max(rel(r.transpose(-1, -2) @ r,
+                              rp.transpose(-1, -2) @ rp),
+                          rel(q @ r, a),
+                          rel(q.transpose(-1, -2) @ q,
+                              torch.eye(kn, device=a.device).expand(
+                                  nb, kn, kn)))
+                run = lambda rt: kbq.batched_qr(a, route=rt)
+                lib = lambda: torch.linalg.qr(a)
+            else:
+                r = kbq.batched_qr_r(a, route=route)
+                rp = ref.batched_qr(a)[1]
+                err = rel(r.transpose(-1, -2) @ r, rp.transpose(-1, -2) @ rp)
+                run = lambda rt: kbq.batched_qr_r(a, route=rt)
+                lib = lambda: torch.linalg.qr(a, mode="r")
+            nbytes = 4 * nb * (n * k + (n * kn if want_q else 0) + kn * k)
+            flops = qr_flops(nb, n, k, want_q)
+        else:
+            polish = entry != "svals"
+            route = kbs.svd_plan(n, k, want_vt=False)
+            fits_general = kbs.general_bytes(n, k) <= kbs.SMEM_LIMIT
+            u, sv, _ = kbs.batched_svd(a, route=route, want_vt=False,
+                                       polish=polish)
+            up, sp, _ = ref.batched_svd(a.double())
+            err = rel(sv, sp)
+            if polish:
+                err = max(err, rel(u * sv[:, None, :] @ u.transpose(-1, -2),
+                                   up * sp[:, None, :] @
+                                   up.transpose(-1, -2)))
+            f32 = rel(ref.batched_svd(a)[1], sp)
+            run = lambda rt: kbs.batched_svd(a, route=rt, want_vt=False,
+                                             polish=polish)
+            lib = lambda: torch.linalg.svdvals(a) if not polish else \
+                torch.linalg.svd(a, full_matrices=False)
+            nbytes = 4 * nb * (n * k + (n * kn if polish else 0) + kn)
+            flops = svd_flops(nb, n, k, want_vt=False)
+        bnd, by = bound_ms(nbytes, flops)
+        ms = timer.ms(lambda: run(route), reps=3)
+        gms = timer.ms(lambda: run("general"), reps=2) \
+            if route != "general" and fits_general else \
+            (ms if route == "general" else None)
+        lms = timer.ms(lib, reps=1, warmup=0)
+        row = dict(entry=entry, shape=list(shp), launches=count, route=route,
+                   rel_err=err, f32_plain_sigma_err=f32, ms=ms,
+                   general_ms=gms,
+                   bound_ms=bnd, bound_by=by, library_ms=lms)
+        rows.append(row)
+        gtxt = f"{gms:.4f}" if gms is not None else "does not fit"
+        ftxt = f" (float64; float32 plain sigma off by {f32:.2e})" \
+            if f32 is not None else ""
+        log(f"[kernel] sketch shape {entry} {list(shp)}: launches {count}, "
+            f"route {route}, vs plain {err:.3e}{ftxt} (tol {SHAPE_TOL:g}), "
+            f"ms={ms:.4f} general ms={gtxt} bound_ms={bnd:.4f} ({by}) "
+            f"torch.linalg ms={lms:.1f}")
+        require(err <= SHAPE_TOL, f"sketch shape {entry} {list(shp)} on "
+                f"route {route}: {err:.3e} from the plain version")
+    log("[kernel] sketch QR+SVD kernel time per construction, sum of "
+        f"launches x ms: {sum(r['launches'] * r['ms'] for r in rows):.2f} "
+        "ms")
+    return rows
+
+
+def sketch_phase(torch, timer, keep, device: str = "cuda",
+                 n: int = SKETCH_N, solve_n: int = SKETCH_SOLVE_N,
+                 bb_side: int = BB_SIDE) -> dict:
+    """The sketch path, its launches counted from reset to end: K of the
+    §6.4 problem at ``n`` by ``construct_h2(method="sketch")`` (split by
+    phase, QR/SVD launches per route and shape), its HGEMV against exact
+    float64 rows and its bases' orthogonality; ``solve(solve_n,
+    construction="sketch")`` with CUDA graphs; the black box
+    ``construct_from_matvec`` of A = B B with B the paper's 2D set at
+    N = ``bb_side``^2.  Then, outside the count: each QR/SVD shape of the
+    construction against its plain version and timed, the same sketches'
+    bases on the plain backend (ranks within 1 per level, operator within
+    1e-3), the card's Gaussians against the CPU's (bitwise), the distance
+    to the ``[solve]`` phase's cheb-built K (``keep``), the cheb-built
+    ``solve(solve_n)``.  ``device="cpu"`` rehearses it without a card (no
+    kernel runs: the launch checks fail and nothing is timed there)."""
+    from repro_torch.apps import fractional as pf
+    from repro_torch.core.clustering import regular_grid_points
+    from repro_torch.core.construction import construct_h2
+    from repro_torch.core.kernels_fn import (exponential_kernel,
+                                             fractional_kernel_2d)
+    from repro_torch.core.matvec import h2_matvec
+    from repro_torch.core.reconstruct import check_orthogonal
+    from repro_torch.kernels import ops
+    from repro_torch.obs.trace import phase_times
+    from repro_torch.sketch import construct as scon
+    from repro_torch.sketch import rangefinder, rng
+    from repro_torch.sketch.blackbox import construct_from_matvec
+    from repro_torch.sketch.sample import project_coupling_blocks
+
+    on_card = device == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    t_phase = time.perf_counter()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    opts = dict(SKETCH_OPTS, backend="cuda")
+    pts = pf.interior_grid(n)
+    kern = fractional_kernel_2d(0.75)
+
+    # ---- 1. K at n by sketch ----
+    captured, budgets = {}, []
+    real_nb, real_draw = scon.build_nested_bases, rng.level_gaussians
+
+    def capture(sketches, *a, **kw):      # kept for the plain-backend check
+        captured["sketches"] = sketches
+        return real_nb(sketches, *a, **kw)
+
+    def draw(seed, level, n_nodes, rows, cols, *a, **kw):
+        if not budgets or budgets[-1] != cols:
+            budgets.append(cols)
+        return real_draw(seed, level, n_nodes, rows, cols, *a, **kw)
+
+    def build():
+        return construct_h2(pts, kern, leaf_size=64, cheb_p=6, eta=0.9,
+                            method="sketch", sketch_opts=opts, device=device)
+
+    ops.reset_launch_counts()
+    start = tally_start()
+    scon.build_nested_bases, rng.level_gaussians = capture, draw
+    try:
+        with phase_times(sync) as split:
+            sync()
+            t0 = time.perf_counter()
+            seen, inputs, (shape, data, tree, bs) = record_qr_svd(
+                torch, build, keep_inputs=True) if on_card else \
+                ({}, {}, build())
+            sync()
+            t_build = time.perf_counter() - t0
+    finally:
+        scon.build_nested_bases, rng.level_gaussians = real_nb, real_draw
+    split = dict(split)
+    build_routes = {k: dict(v) for k, v in ops.route_launch_counts().items()
+                    if k in ("batched_qr", "batched_svd")}
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    log(f"[sketch] construct_h2(method='sketch') n={n} N={shape.n} depth "
+        f"{shape.depth}: {t_build:.3f} s (synchronised at each phase), "
+        f"ranks {shape.ranks}, budgets drawn {budgets} (samples used "
+        f"{budgets[-1]}), operator {data.nbytes() / 1e9:.3f} GB, peak "
+        f"memory {peak / 1e9:.2f} GB")
+    log("[sketch] construction by phase (ms, synchronised): " +
+        ", ".join(f"{k}={v:.1f}" for k, v in split.items()
+                  if k.startswith("sketch/")))
+    log(f"[sketch] construction QR/SVD launches by route: {build_routes}; "
+        f"distinct shapes {len(seen)}")
+
+    gen = torch.Generator().manual_seed(11)
+    x = torch.randn(shape.n, 1, generator=gen).to(device)
+    y = h2_matvec(shape, data, x, backend="cuda")
+    rows = torch.randperm(shape.n, generator=torch.Generator().manual_seed(2)
+                          )[:512].to(device)
+    exact = kernel_rows(torch, pts, kern, tree.perm, rows, x)
+    rel_rows = ((y[rows].double() - exact).norm() / exact.norm()).item()
+    orth = check_orthogonal(shape, data)
+    log(f"[sketch] h2_matvec of the sketch-built K vs 512 exact rows "
+        f"(float64): rel err {rel_rows:.3e} (tol {SKETCH_ROWS_TOL:g}); "
+        f"check_orthogonal {orth:.3e} (tol {SKETCH_ORTH_TOL:g})")
+    require(bool(torch.isfinite(y).all()) and y.shape == (shape.n, 1),
+            "sketch HGEMV not finite or of the wrong shape")
+    require(rel_rows <= SKETCH_ROWS_TOL,
+            f"sketch-built K vs exact rows {rel_rows:.3e}")
+    require(orth < SKETCH_ORTH_TOL, f"sketch bases not orthonormal {orth:.3e}")
+
+    # ---- 2. the §6.4 solve on sketch-built operators ----
+    sync()
+    t0 = time.perf_counter()
+    res = pf.solve(solve_n, construction="sketch", device=device,
+                   backend="cuda", **SKETCH_SOLVE_ARGS)
+    sync()
+    t_solve = time.perf_counter() - t0
+    sprob = res["prob"]
+    log(f"[sketch] solve({solve_n}, construction='sketch'): "
+        f"{res['iters']} iterations, status {res['status']}, relres "
+        f"{res['relres']:.3e}, {t_solve:.2f} s (build " +
+        ", ".join(f"{k} {v:.2f} s" for k, v in res["timings"].items()) +
+        f"); K ranks {sprob['shape'].ranks}")
+    require(res["status"] == 0, f"sketch solve status {res['status']}")
+
+    # ---- 3. black box: A = B B from its matvec alone ----
+    bpts = regular_grid_points(bb_side, 2)
+    bshape, bdata, _, _ = construct_h2(bpts, exponential_kernel(0.1),
+                                       leaf_size=64, cheb_p=6, eta=0.9,
+                                       device=device)
+    calls = []
+
+    def bb(v):
+        calls.append(v.shape[-1])
+        return h2_matvec(bshape, bdata, h2_matvec(bshape, bdata, v))
+
+    cm0 = dict(ops.route_launch_counts()["coupling_mv"])
+    sync()
+    t0 = time.perf_counter()
+    ashape, adata, _, _ = construct_from_matvec(
+        bb, bpts, 64, 0.9, tol=1e-4, max_rank=64, device=device)
+    sync()
+    t_bb = time.perf_counter() - t0
+    cm_bb = {r: v - cm0[r] for r, v in
+             ops.route_launch_counts()["coupling_mv"].items()}
+    xb = torch.randn(bshape.n, 2, generator=gen).to(device)
+    want = bb(xb)
+    rel_bb = ((h2_matvec(ashape, adata, xb) - want).norm() /
+              want.norm()).item()
+    log(f"[sketch] construct_from_matvec(B B), N={bshape.n}: {t_bb:.2f} s, "
+        f"{len(calls) - 1} matvec calls = {2 * (len(calls) - 1)} HGEMVs of "
+        f"B over {sum(calls[:-1])} probe columns (widest {max(calls[:-1])});"
+        f" coupling_mv by route {cm_bb}; ranks {ashape.ranks}; A x vs "
+        f"B (B x): {rel_bb:.3e} (tol {BB_TOL:g})")
+    require(rel_bb <= BB_TOL, f"black-box A = B B off by {rel_bb:.3e}")
+
+    # the sketch path ends here
+    launches, routes, _ = launches_that_ran(start)
+    log(f"[sketch] launches on the sketch path: {launches}; by route "
+        f"{routes}")
+
+    # ---- outside the count: comparisons ----
+    shape_rows = sketch_shape_checks(torch, timer, seen, inputs) \
+        if on_card else []
+    del inputs
+    u_p, e_p, ranks_p = rangefinder.build_nested_bases(
+        captured.pop("sketches"), 64, opts["tol"], opts["max_rank"],
+        backend="torch")
+    u_exp = rangefinder.explicit_bases(u_p, e_p)
+    ppts = torch.as_tensor(tree.points, device=device).float()
+    s_p = [project_coupling_blocks(
+        ppts.reshape(1 << l, shape.n >> l, -1), data.s_rows[l],
+        data.s_cols[l], u_exp[l], u_exp[l], kernel=kern,
+        chunk=opts["chunk"]) if shape.coupling_counts[l] else
+        ppts.new_zeros((0, ranks_p[l], ranks_p[l]))
+        for l in range(shape.depth + 1)]
+    del u_exp
+    pshape, pdata = scon._assemble(tree, bs, u_p, e_p, ranks_p, s_p,
+                                   data.dense, plan=data.plan)
+    y_p = h2_matvec(pshape, pdata, x, backend="torch")
+    rel_p = ((y_p - y).norm() / y.norm()).item()
+    rank_gap = max(abs(a - b) for a, b in zip(ranks_p, shape.ranks))
+    log(f"[sketch] the same sketches' bases on the plain backend: ranks "
+        f"{ranks_p} (largest gap {rank_gap}, tol 1); operator vs the "
+        f"kernels' {rel_p:.3e} (tol {SKETCH_PLAIN_TOL:g})")
+    require(rank_gap <= 1, f"plain-backend ranks {ranks_p} vs "
+            f"{shape.ranks}")
+    require(rel_p <= SKETCH_PLAIN_TOL,
+            f"plain-backend sketch operator off by {rel_p:.3e}")
+    del pdata, s_p
+
+    lv, nn, w = 3, 8, shape.n >> 3
+    g_dev = rng.level_gaussians(0, lv, nn, w, opts["max_rank"] +
+                                opts["oversample"], device=device)
+    g_cpu = rng.level_gaussians(0, lv, nn, w, opts["max_rank"] +
+                                opts["oversample"])
+    same = torch.equal(g_dev.cpu(), g_cpu)
+    log(f"[sketch] level_gaussians level {lv} {list(g_cpu.shape)}: card "
+        f"vs CPU {'bitwise equal' if same else 'DIFFER'}")
+    require(same, "the card's Gaussians differ from the CPU's")
+    del g_dev, g_cpu
+
+    dist_cheb = rows_cheb = None
+    kp = keep["prob"] if keep is not None else None
+    if kp is not None and kp["shape"].n == shape.n and \
+            kp["shape"].leaf_size == shape.leaf_size:
+        yc = h2_matvec(kp["shape"], kp["data"], x, backend="cuda")
+        dist_cheb = ((y - yc).norm() / yc.norm()).item()
+        rows_cheb = ((yc[rows].double() - exact).norm() /
+                     exact.norm()).item()
+        log(f"[sketch] sketch-built K vs the [solve] phase's cheb-built K "
+            f"(compressed at h2_tol 1e-6), one random vector: "
+            f"{dist_cheb:.3e}; the cheb-built K vs the same 512 exact rows:"
+            f" {rows_cheb:.3e} (the sketch-built: {rel_rows:.3e})")
+    cheb = pf.solve(solve_n, device=device, backend="cuda",
+                    **SKETCH_SOLVE_ARGS)
+    log(f"[sketch] cheb-built solve({solve_n}): {cheb['iters']} iterations,"
+        f" status {cheb['status']}; sketch-built {res['iters']}; u apart "
+        f"{((res['u'] - cheb['u']).norm() / cheb['u'].norm()).item():.3e}")
+    t_phase = time.perf_counter() - t_phase
+    log(f"[sketch] phase took {t_phase:.1f} s (construction {t_build:.1f} s,"
+        f" solve {t_solve:.1f} s, black box {t_bb:.1f} s)")
+    return dict(
+        n=n, build_s=t_build, split_ms={k: v for k, v in split.items()
+                                        if k.startswith("sketch/")},
+        ranks=shape.ranks, budgets=budgets, samples_used=budgets[-1],
+        max_memory_allocated=peak, build_routes=build_routes,
+        rows_rel=rel_rows, orthogonality=orth, plain_ranks=ranks_p,
+        plain_rel=rel_p, gaussians_equal=same, vs_cheb_k=dist_cheb,
+        cheb_k_rows_rel=rows_cheb,
+        shapes=shape_rows,
+        solve=dict(n=solve_n, iters=res["iters"], status=res["status"],
+                   relres=res["relres"], s=t_solve,
+                   build_s=dict(res["timings"]), cheb_iters=cheb["iters"],
+                   k_ranks=sprob["shape"].ranks),
+        blackbox=dict(n=bshape.n, s=t_bb, matvec_calls=len(calls) - 1,
+                      probe_columns=sum(calls[:-1]),
+                      widest=max(calls[:-1]), coupling_mv_routes=cm_bb,
+                      ranks=ashape.ranks, rel=rel_bb),
+        launches=launches, routes=routes, phase_s=t_phase)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--log2n", type=int, default=20,
@@ -2175,9 +2564,15 @@ def main() -> int:
     require(cm["general"] == 0,
             f"a solve-path coupling_mv launch took the general route: {cm}")
     dsolve = dsolve_phase(torch, keep)
-    del keep
     for name, n in dsolve["launches"].items():
         log(f"[kernels] {name}: {n} launches on the distributed solve path")
+    sketch = sketch_phase(torch, timer, keep)
+    del keep
+    for name, n in sketch["launches"].items():
+        log(f"[kernels] {name}: {n} launches on the sketch path")
+    for name in ("batched_gemm", "coupling_mv", "batched_qr", "batched_svd"):
+        require(sketch["launches"][name] > 0,
+                f"{name} was not launched on the sketch path")
     kernels = []
     for name in KERNELS:
         r = results[name]
@@ -2186,7 +2581,8 @@ def main() -> int:
             source=f"src/repro_torch/csrc/{name}.cu",
             replaces=REPLACES[name],
             launches=(main["launches"][name] + dist["launches"][name] +
-                      solve["launches"][name] + dsolve["launches"][name]),
+                      solve["launches"][name] + dsolve["launches"][name] +
+                      sketch["launches"][name]),
             max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"]))
@@ -2206,8 +2602,10 @@ def main() -> int:
                   "general_ms"], "levels": coupling_rows},
               **detail_qr_svd}
     ssummary = {k: v for k, v in solve.items() if k != "launches"}
+    ksummary = {k: v for k, v in sketch.items() if k != "launches"}
     log(json.dumps({"main_path": summary, "distributed": dsummary,
                     "solve": ssummary, "distributed_solve": dsolve,
+                    "sketch": ksummary,
                     "kernel_detail": detail, "card": smi}))
     log(smi)
     log(json.dumps({"kernels": kernels}))

@@ -5,7 +5,9 @@ on one device or over the ranks of a ``Comm``.
 
 discretized on a regular grid (paper Eq. 9):  h^2 (D + K + C) u = b, with
   K  -- the dense kernel matrix (zero diagonal), compressed as an H^2 matrix
-       built by Chebyshev interpolation + algebraic recompression;
+       built by Chebyshev interpolation + algebraic recompression, or
+       (``construction="sketch"``) by randomized sketching on the device,
+       rank-adaptive to the tolerance and so not recompressed;
   D  -- diagonal, D_ii = (Khat @ 1)_i where Khat is the same (positive)
        kernel on the extended grid Omega u Omega_0 (paper Eq. 10) --
        assembled with a second H^2 operator and one HGEMV, then discarded;
@@ -94,21 +96,34 @@ class FractionalProblem:
     h2_tol: float = 1e-6         # compression tolerance for K
     cheb_p: int = 6
     eta: float = 0.9
-    construction: str = "cheb"   # only "cheb" is ported
+    construction: str = "cheb"   # "cheb" (host) | "sketch" (device)
     device: str = "cuda"
-    backend: str = "cuda"        # kernels of the compress and the D HGEMV
+    backend: str = "cuda"        # kernels of the compress, the sketch's
+                                 # QR/SVD and the D HGEMV
+
+    def _construct(self, pts, kernel, m):
+        """One kernel-matrix construction, host-Chebyshev or device-sketch.
+
+        Returns ``(construct_h2's tuple, needs_compress)``: the sketch path
+        is already rank-adaptive (its rangefinder truncates to tolerance),
+        so it needs no separate recompression pass; float32 sketching
+        floors the tolerance at 1e-4."""
+        if self.construction == "sketch":
+            tol = max(self.h2_tol, 1e-4)
+            return construct_h2(
+                pts, kernel, leaf_size=m, cheb_p=self.cheb_p, eta=self.eta,
+                method="sketch", device=self.device,
+                sketch_opts={"tol": tol, "backend": self.backend}), False
+        if self.construction != "cheb":
+            raise ValueError(f"unknown construction {self.construction!r}")
+        return construct_h2(pts, kernel, leaf_size=m, cheb_p=self.cheb_p,
+                            eta=self.eta, device=self.device), True
 
     def build(self, compress_k: bool = True) -> Dict:
         """The operator's parts on ``device``.  ``timings`` holds the
         seconds of each part (synchronized on the card): ``construct_k``,
-        ``compress``, ``construct_ext`` (the extended grid's operator),
-        ``d_matvec`` (its one HGEMV)."""
-        if self.construction == "sketch":
-            raise NotImplementedError(
-                "FractionalProblem(construction='sketch') is not ported yet "
-                "(ROADMAP Queue 1 item 5: sketch construction)")
-        if self.construction != "cheb":
-            raise ValueError(f"unknown construction {self.construction!r}")
+        ``compress`` (cheb only), ``construct_ext`` (the extended grid's
+        operator), ``d_matvec`` (its one HGEMV)."""
         n = self.n
         h = 2.0 / n
         dev = torch.device(self.device)
@@ -124,10 +139,10 @@ class FractionalProblem:
 
         pts = interior_grid(n)
         m = 16 if n <= 32 else 64
-        shape, data, tree, _ = timed("construct_k", lambda: construct_h2(
-            pts, fractional_kernel_2d(self.beta), leaf_size=m,
-            cheb_p=self.cheb_p, eta=self.eta, device=dev))
-        if compress_k:
+        (shape, data, tree, _), needs_compress = timed(
+            "construct_k", lambda: self._construct(
+                pts, fractional_kernel_2d(self.beta), m))
+        if compress_k and needs_compress:
             shape, data = timed("compress", lambda: compress(
                 shape, data, tol=self.h2_tol, backend=self.backend))
 
@@ -140,9 +155,9 @@ class FractionalProblem:
             if m_ext > n_ext:
                 m_ext = n_ext
                 break
-        eshape, edata, etree, _ = timed("construct_ext", lambda: construct_h2(
-            pts_ext, fractional_kernel_2d_positive(self.beta),
-            leaf_size=m_ext, cheb_p=self.cheb_p, eta=self.eta, device=dev))
+        (eshape, edata, etree, _), _ = timed(
+            "construct_ext", lambda: self._construct(
+                pts_ext, fractional_kernel_2d_positive(self.beta), m_ext))
         ones = torch.ones((eshape.n, 1), dtype=torch.float32, device=dev)
         row_sums = timed("d_matvec", lambda: h2_matvec(
             eshape, edata, ones, backend=self.backend))[:, 0]

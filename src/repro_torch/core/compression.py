@@ -18,6 +18,11 @@ Rank selection:
   once; only its singular values go to the host, where the level's rank is
   picked, and the computed factors are sliced to it.  The host syncs per
   level are by design.
+- ``tol`` with ``legacy_two_sweep=True``: the reference's pre-fusion
+  schedule, the baseline the single sweep is held against: both trees
+  orthogonalized and weighted apart (no symmetry aliasing), the ranks
+  probed by one upsweep (``pick_ranks_by_tol``), then ``truncate`` runs
+  every SVD again.
 """
 from __future__ import annotations
 
@@ -229,18 +234,76 @@ def truncate_by_tol(shape: H2Shape, data: H2Data, ru: List[torch.Tensor],
     return _pack_truncated(shape, data, u_leaf, v_leaf, e_new, f_new, pu, pv)
 
 
+def pick_ranks_by_tol(shape: H2Shape, data: H2Data, ru: List[torch.Tensor],
+                      rv: List[torch.Tensor], tol: float,
+                      backend: str = "cuda") -> Tuple[int, ...]:
+    """Two-sweep reference: probe the truncation upsweep for ranks only.
+
+    The baseline the fused single sweep (``truncate_by_tol``) is held
+    against: it runs every upsweep SVD that ``truncate`` then repeats.  The
+    scale is the largest singular value seen at the leaf level (a proxy for
+    the norm of the low-rank part, making ``tol`` a relative threshold).
+    """
+    depth = shape.depth
+    _, s_u = truncation_leaf_factors(ru[depth], backend)
+    _, s_v = truncation_leaf_factors(rv[depth], backend)
+    thresh = tol * float(torch.maximum(s_u.max(), s_v.max()))
+
+    def count(s) -> int:
+        return max(int((s > thresh).sum(dim=-1).max()), 1)
+
+    rq = max(count(s_u), count(s_v))
+
+    def sweep_probe(transfers, r) -> List[int]:
+        picked = [0] * (depth + 1)
+        w, _ = truncation_leaf_factors(r[depth], backend)
+        p = w[..., :rq].transpose(-1, -2)
+        for l in range(depth, 0, -1):
+            stack, g, s = truncation_inner_factors(p, transfers[l],
+                                                   r[l - 1], backend)
+            picked[l - 1] = min(count(s), stack.shape[1])
+            p = truncation_project(g[..., :picked[l - 1]], stack)
+        return picked
+
+    pu = sweep_probe(data.e, ru)
+    pv = pu if _aliased(shape, data) else sweep_probe(data.f, rv)
+    out = [max(a, b) for a, b in zip(pu, pv)]
+    out[depth] = rq
+    return tuple(min(o, k) for o, k in zip(out, shape.ranks))
+
+
+def _unaliased(data: H2Data) -> H2Data:
+    """The same operator with its V tree a distinct object (views of the U
+    tree, no copy), so that every pass factors both trees."""
+    return dataclasses.replace(
+        data, v_leaf=data.v_leaf.view_as(data.v_leaf),
+        f=[t.view_as(t) for t in data.f])
+
+
 def compress(shape: H2Shape, data: H2Data, tol: Optional[float] = None,
              target_ranks: Optional[Sequence[int]] = None,
-             backend: str = "cuda", assume_orthogonal: bool = False
-             ) -> Tuple[H2Shape, H2Data]:
+             backend: str = "cuda", assume_orthogonal: bool = False,
+             legacy_two_sweep: bool = False) -> Tuple[H2Shape, H2Data]:
     """Full recompression: orthogonalize -> weights -> truncate -> project.
 
     ``target_ranks`` truncates to static ranks; ``tol`` runs the single-
     sweep host-in-the-loop rank pick (each SVD once).  The sweeps read the
     marshaling plan, which every constructed operator carries.
+    ``legacy_two_sweep=True`` takes the retired probe-then-truncate tol
+    path on the reference's pre-fusion schedule (no symmetry aliasing,
+    ``pick_ranks_by_tol`` then ``truncate``): the baseline of the fused
+    path.
     """
     if target_ranks is None and tol is None:
         raise ValueError("need tol or target_ranks")
+    if legacy_two_sweep and target_ranks is None:
+        data = _unaliased(data)
+        if not assume_orthogonal:
+            data = orthogonalize(shape, data, backend)
+            shape = shape_of(data, shape.leaf_size, shape.symmetric)
+        ru, rv = compression_weights(shape, data, backend)
+        picked = pick_ranks_by_tol(shape, data, ru, rv, tol, backend)
+        return truncate(shape, data, ru, rv, picked, backend)
     if not assume_orthogonal:
         data = orthogonalize(shape, data, backend)
         shape = shape_of(data, shape.leaf_size, shape.symmetric)

@@ -1,13 +1,21 @@
 """Construct a concrete H^2 matrix from (points, kernel, admissibility).
 
-``method="cheb"`` is the paper's path: cluster tree -> dual-tree traversal
-(host numpy, vectorized) -> Chebyshev interpolation for the low-rank blocks
-and direct kernel evaluation for the dense leaves.  The kernel evaluations
-run batched on ``device`` in float64 and are rounded to ``dtype``.
+Two construction paths share this entry point:
+
+- ``method="cheb"`` (default) -- the paper's path: cluster tree ->
+  dual-tree traversal (host numpy, vectorized) -> Chebyshev interpolation
+  for the low-rank blocks and direct kernel evaluation for the dense
+  leaves.  The kernel evaluations run batched on ``device`` in float64 and
+  are rounded to ``dtype``.
+- ``method="sketch"`` -- the on-device randomized sketching path
+  (``repro_torch.sketch``): batched kernel-block sampling + nested-basis
+  rangefinder, in ``dtype`` on ``device``; extra options go in
+  ``sketch_opts`` (tol, max_rank, oversample, n_samples0, seed, chunk,
+  backend).
 """
 from __future__ import annotations
 
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -21,7 +29,7 @@ from .structure import H2Data, H2Shape, build_coupling_plan, remarshal
 def construct_h2(points: np.ndarray, kernel: Callable, leaf_size: int,
                  cheb_p: int, eta: float, dtype=torch.float32,
                  min_level: int = 1, method: str = "cheb",
-                 device="cuda"
+                 sketch_opts: Optional[dict] = None, device="cuda"
                  ) -> Tuple[H2Shape, H2Data, ClusterTree, BlockStructure]:
     """Build an H^2 approximation of the kernel matrix K[i,j]=kernel(x_i,x_j).
 
@@ -30,9 +38,10 @@ def construct_h2(points: np.ndarray, kernel: Callable, leaf_size: int,
     between orderings.
     """
     if method == "sketch":
-        raise NotImplementedError(
-            "construct_h2(method='sketch') is not ported yet "
-            "(ROADMAP Queue 1 item 6: sketch construction)")
+        from repro_torch.sketch.construct import sketch_construct
+        return sketch_construct(points, kernel, leaf_size, eta,
+                                min_level=min_level, dtype=dtype,
+                                device=device, **(sketch_opts or {}))
     if method != "cheb":
         raise ValueError(f"unknown construction method {method!r}")
     device = torch.device(device)

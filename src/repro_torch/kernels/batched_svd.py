@@ -66,6 +66,14 @@ def warp_bytes(n: int, k: int, want_vt: bool) -> int:
     return 4 * ((f + 3) & ~3)
 
 
+def general_bytes(n: int, k: int) -> int:
+    """Shared memory of one matrix on the general route
+    (``batched_svd_smem_bytes`` in the kernel): the matrix and V with a
+    padded column each, sigma and the order, and a reduction scratch."""
+    ke = k + (k & 1)
+    return 4 * (n * (ke + 1) + ke * (ke + 1) + 2 * ke + 32)
+
+
 def svd_plan(n: int, k: int, want_vt: bool = True,
              smem_limit: int = SMEM_LIMIT) -> str:
     """The route ``batched_svd`` takes for ``[*, n, k]`` (a pure function
@@ -78,14 +86,17 @@ def svd_plan(n: int, k: int, want_vt: bool = True,
 
 
 def batched_svd(a: torch.Tensor, *, max_sweeps: int = 15, tol: float = 1e-6,
-                want_vt: bool = True, route: Optional[str] = None
+                want_vt: bool = True, route: Optional[str] = None,
+                polish: bool = True
                 ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
     """A ``[B, n, k]`` -> (U ``[B, n, kn]``, sigma ``[B, kn]``,
     V^T ``[B, kn, k]``), kn = min(n, k) -- ``torch.linalg.svd`` shapes.
 
     ``want_vt=False`` returns None for V^T (the square routes then do not
     accumulate V).  ``route`` overrides ``svd_plan`` (to hold the routes to
-    each other); a route that cannot take the shape raises."""
+    each other); a route that cannot take the shape raises.
+    ``polish=False`` skips the QR polish of U (for a caller that reads
+    sigma alone)."""
     global LAUNCHES
     if not a.is_cuda:
         raise ValueError("batched_svd kernel takes CUDA tensors")
@@ -111,7 +122,7 @@ def batched_svd(a: torch.Tensor, *, max_sweeps: int = 15, tol: float = 1e-6,
     vt = a.new_empty((nb, kn, k)) if want_vt else None
     vt_ptr = _build.ptr(vt) if want_vt else None
     if route == "general":
-        need = lib.batched_svd_smem_bytes(n, k)
+        need = general_bytes(n, k)
         if need > limit:
             raise ValueError(f"batched_svd: a [{n} x {k}] matrix needs "
                              f"{need} bytes of shared memory, more than one "
@@ -128,6 +139,6 @@ def batched_svd(a: torch.Tensor, *, max_sweeps: int = 15, tol: float = 1e-6,
     LAUNCHES += 1
     ROUTE_LAUNCHES[route] += 1
     _build.check(lib, err, "batched_svd")
-    if route == "warp_t":
+    if route == "warp_t" or not polish:
         return u, s, vt
     return batched_qr(u)[0], s, vt

@@ -87,13 +87,16 @@ def backend_qr_r(a: torch.Tensor, backend: str = "cuda") -> torch.Tensor:
     return backend_qr(a, backend)[1]
 
 
-def backend_svd(a: torch.Tensor, backend: str = "cuda", want_vt: bool = True
+def backend_svd(a: torch.Tensor, backend: str = "cuda", want_vt: bool = True,
+                polish: bool = True
                 ) -> Tuple[torch.Tensor, torch.Tensor,
                            Optional[torch.Tensor]]:
     """Reduced SVD.  ``want_vt=False`` lets the kernel skip V^T (it then
-    returns None there); the plain path computes it all the same."""
+    returns None there) and ``polish=False`` the QR polish of U (for a
+    caller that reads sigma alone); the plain path computes it all the
+    same."""
     if use_kernel(a, backend):
-        return _bs.batched_svd(a, want_vt=want_vt)
+        return _bs.batched_svd(a, want_vt=want_vt, polish=polish)
     nb, n, k = a.shape
     if 0 in a.shape:
         kn = min(n, k)

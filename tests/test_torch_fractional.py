@@ -173,7 +173,13 @@ def test_solve_matches_dense_direct_solve():
 
 
 def test_not_ported_parts_raise():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        pf.FractionalProblem(8, construction="sketch", device="cpu").build()
+    """``construction="sketch"`` is ported now (it builds K without a
+    compress); unknown constructions and methods raise."""
+    prob = pf.FractionalProblem(8, construction="sketch",
+                                device="cpu").build()
+    assert "compress" not in prob["timings"]
+    assert prob["shape"].n == 64
+    with pytest.raises(ValueError, match="unknown construction"):
+        pf.FractionalProblem(8, construction="aca", device="cpu").build()
     with pytest.raises(ValueError):
         pf.solve(8, method="minres", device="cpu")

@@ -175,6 +175,7 @@ def test_cuda_planner_bytes_match_the_kernels(cuda, n, k):
         assert 4 * qr.batched_qr_warp_floats(n, k, int(want)) == \
             kbq.warp_bytes(n, k, want)
     assert 4 * qr.batched_qr_tall_floats(k) == kbq.tall_bytes(k)
+    assert svd.batched_svd_smem_bytes(n, k) == kbs.general_bytes(n, k)
 
 
 @pytest.mark.parametrize("per_warp,want", [(15552, 2), (19008, 4),
@@ -185,3 +186,171 @@ def test_warps_per_block_keeps_the_most_warps_resident(per_warp, want):
     on an SM (4 would keep 12)."""
     from repro_torch.kernels import _build
     assert _build.warps_per_block(per_warp, kbq.SMEM_LIMIT) == want
+
+
+# ---------------------------------------------------------------------------
+# the sketch construction's QR and SVD launches (repro_torch.sketch)
+# ---------------------------------------------------------------------------
+
+SKETCH_BUDGETS = (26, 52, 74)     # 16 + 10, doubled, capped at 64 + 10
+
+
+def sketch_launches(depth: int, leaf: int, levels, budgets, ranks) -> list:
+    """Every QR and SVD launch of one sketch construction, as
+    ``(kind, nb, n, k)``: the spectra of each round's sketches (``qr_r``,
+    then ``svals``: sigma only, no polish), then the rangefinder's bases
+    at the last budget (``qr``, ``qr_r`` of a wide R factor's transpose,
+    ``svd``: U wanted).  ``levels``: the coupling levels; ``ranks``: the
+    picked rank per level."""
+    out = []
+    n = leaf << depth
+    for r in budgets:
+        for l in levels:
+            w = n >> l
+            out += [("qr_r", 1 << l, w, r), ("svals", 1 << l, min(w, r), r)]
+    r = budgets[-1]
+    col_end, acc = [], 0
+    for l in range(depth + 1):
+        acc += r if l in levels else 0
+        col_end.append(acc)
+
+    def basis(nb, rows, cols):
+        p = min(rows, cols)
+        out.append(("qr", nb, rows, cols))
+        if p < cols:
+            out.append(("qr_r", nb, cols, p))
+        out.append(("svd", nb, p, p))
+
+    basis(1 << depth, leaf, col_end[depth])
+    for l in range(depth, 0, -1):
+        if col_end[l - 1] == 0:
+            break
+        basis(1 << (l - 1), 2 * ranks[l], col_end[l - 1])
+    return out
+
+
+def _route_fits(kind: str, nb: int, n: int, k: int) -> str:
+    """The route the wrapper takes for one launch; asserts that its shared
+    memory fits a block (the general QR keeps a global scratch copy when
+    the matrix does not fit, so it always launches)."""
+    if kind in ("qr", "qr_r"):
+        route = kbq.qr_plan(n, k, kind == "qr", nb=nb)
+        if route == "warp":
+            assert kbq.warp_bytes(n, k, kind == "qr") <= kbq.SMEM_LIMIT
+        elif route == "tall":
+            assert kbq.tall_bytes(k) <= kbq.SMEM_LIMIT
+        return route
+    route = kbs.svd_plan(n, k, want_vt=False)
+    if route == "general":
+        assert kbs.general_bytes(n, k) <= kbs.SMEM_LIMIT, (n, k)
+    else:
+        assert kbs.warp_bytes(n, k, False) <= kbs.SMEM_LIMIT
+    if kind == "svd" and route != "warp_t":      # U is polished by a QR
+        _route_fits("qr", nb, n, min(n, k))
+    return route
+
+
+def _record_sketch_launches(monkeypatch, fn):
+    """Run ``fn`` with the QR and SVD dispatch recording each launch."""
+    from repro_torch.kernels import ops as kops
+    seen, depth = [], [0]
+
+    def wrap(kind, real):
+        def rec(a, backend="cuda", **kw):
+            if not depth[0]:
+                k = ("svals" if not kw.get("polish", True) else "svd") \
+                    if kind == "svd" else kind
+                seen.append((k,) + tuple(a.shape))
+            depth[0] += 1
+            try:
+                return real(a, backend, **kw)
+            finally:
+                depth[0] -= 1
+        return rec
+
+    for kind, name in (("qr", "backend_qr"), ("qr_r", "backend_qr_r"),
+                       ("svd", "backend_svd")):
+        monkeypatch.setattr(kops, name, wrap(kind, getattr(kops, name)))
+    out = fn()
+    return seen, out
+
+
+@pytest.mark.parametrize("side,leaf,n0", [(16, 16, None), (32, 16, 6),
+                                          (64, 64, None)])
+def test_sketch_launch_model_matches_a_construction(monkeypatch, side, leaf,
+                                                    n0):
+    """A CPU construction issues exactly the modelled launches, and each
+    maps to a route that fits."""
+    from repro_torch.core.clustering import regular_grid_points
+    from repro_torch.core.kernels_fn import exponential_kernel
+    from repro_torch.sketch import construct as tcon
+    from repro_torch.sketch import rng
+    budgets = []
+    real = rng.level_gaussians
+
+    def draw(seed, level, n_nodes, rows, cols, *a, **kw):
+        if not budgets or budgets[-1] != cols:
+            budgets.append(cols)
+        return real(seed, level, n_nodes, rows, cols, *a, **kw)
+
+    monkeypatch.setattr(rng, "level_gaussians", draw)
+    seen, (shape, _, _, bs) = _record_sketch_launches(
+        monkeypatch, lambda: tcon.sketch_construct(
+            regular_grid_points(side, 2), exponential_kernel(0.1), leaf,
+            0.9, tol=1e-4, max_rank=48, n_samples0=n0, device="cpu"))
+    levels = [l for l, c in enumerate(bs.coupling_counts()) if c]
+    want = sketch_launches(shape.depth, leaf, levels, budgets, shape.ranks)
+    assert seen == want
+    for launch in seen:
+        assert _route_fits(*launch) in kbq.ROUTES + kbs.ROUTES
+
+
+def _k512_structure():
+    from repro_torch.apps.fractional import interior_grid
+    from repro_torch.core.admissibility import build_block_structure
+    from repro_torch.core.clustering import build_cluster_tree
+    tree = build_cluster_tree(interior_grid(512), 64)
+    return tree, build_block_structure(tree, 0.9)
+
+
+def _k512_levels():
+    tree, bs = _k512_structure()
+    return tree.depth, [l for l, c in enumerate(bs.coupling_counts()) if c]
+
+
+def test_k512_sampling_pass_entries():
+    """The kernel entries one sampling pass of K at n = 512 evaluates (every
+    admissible block's w^2 entries): the count the sketch's time is read
+    against."""
+    tree, bs = _k512_structure()
+    per_level = [len(bs.s_rows[l]) * (tree.n >> l) ** 2
+                 for l in range(tree.depth + 1)]
+    assert sum(per_level) == 68_636_639_232
+    assert per_level[3] == 17_179_869_184 and per_level[4] == 24_696_061_952
+
+
+@pytest.mark.parametrize("k", [1, 8, 26, 36, 52, 64])
+@pytest.mark.parametrize("rounds", [1, 2, 3])
+def test_sketch_launches_at_n512_fit(k, rounds):
+    """K of the §6.4 problem at n = 512 (N = 262,144, leaf 64, depth 12,
+    coupling levels 3-12), every budget sequence the adaptive sampler can
+    draw and ranks up to max_rank = 64 at every level: no launch raises,
+    and the wide leaf R factor [64, 10 r] goes through its transpose."""
+    depth, levels = _k512_levels()
+    assert depth == 12 and levels == list(range(3, 13))
+    launches = sketch_launches(depth, 64, levels, SKETCH_BUDGETS[:rounds],
+                               [k] * (depth + 1))
+    r = SKETCH_BUDGETS[rounds - 1]
+    assert ("qr", 4096, 64, 10 * r) in launches
+    assert ("qr_r", 4096, 10 * r, 64) in launches
+    assert ("svd", 4096, 64, 64) in launches
+    routes = {_route_fits(*launch) for launch in launches}
+    assert routes <= set(kbq.ROUTES + kbs.ROUTES)
+
+
+def test_wide_leaf_r_would_not_fit_the_svd_kernel():
+    """The trap the composition avoids: the leaf R factor [64, 740] as one
+    SVD needs more shared memory than a block has."""
+    assert kbs.svd_plan(64, 740, want_vt=False) == "general"
+    assert kbs.general_bytes(64, 740) > kbs.SMEM_LIMIT
+    assert kbs.general_bytes(128, 128) <= kbs.SMEM_LIMIT

@@ -225,9 +225,20 @@ def test_dense_reference_matches():
 
 
 def test_sketch_method_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tc.construct_h2(regular_grid_points(8, 2), exponential_kernel(0.1),
-                        8, 3, 0.9, method="sketch", device="cpu")
+    """The sketch method is ported now: ``method="sketch"`` builds (on the
+    tree and block lists of the cheb path) and an unknown method raises."""
+    pts = regular_grid_points(8, 2)
+    shape, data, tree, bs = tc.construct_h2(
+        pts, exponential_kernel(0.1), 8, 3, 0.9, method="sketch",
+        device="cpu")
+    cshape, _, ctree, cbs = tc.construct_h2(pts, exponential_kernel(0.1), 8,
+                                            3, 0.9, device="cpu")
+    assert (tree.perm == ctree.perm).all()
+    assert shape.coupling_counts == cshape.coupling_counts
+    assert data.u_leaf.shape[:2] == (shape.n_leaves, 8)
+    with pytest.raises(ValueError, match="unknown construction method"):
+        tc.construct_h2(pts, exponential_kernel(0.1), 8, 3, 0.9,
+                        method="aca", device="cpu")
 
 
 @pytest.mark.parametrize("p", [2, 4])
