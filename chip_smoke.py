@@ -25,13 +25,25 @@ route, on the general kernel and by ``torch.linalg``; each of the 13
 its real inputs, on its planned route and on the general kernel, beside
 its byte bound and the plain marshaled route (``coupling_mv`` launches
 counted per route: none on the general route on the main path);
-then the distributed path: ``partition_h2`` of that operator over 4 ranks,
+then the guard path's operator checks (``[guard]``) on both operators:
+``validate_h2`` timed, the compressed HGEMV certified against the
+uncompressed one (8 probes, 5e-3), and ``drill_corrupt_operator`` in
+"scale" and "nan" mode on shallow copies of the compressed operator
+(``backend="cuda"``), each caught by ``validate_h2`` and by its
+certificate against the healthy HGEMV (the probes' nv = 8 takes
+``coupling_mv``'s general route: logged, not required);
+then the distributed path: ``partition_h2`` of that operator over 4 ranks
+(``validate_dist_h2`` of it),
 and 4 spawned processes in a gloo group sharing the card (payloads staged
 through pinned host memory) that run the halo-plan distributed HGEMV
 (``halo_pack`` packs every exchange), its plain twin, the allgather
 baseline, ``make_dist_compress`` to the main path's ranks and the
 compressed distributed HGEMV, each rank held to the single-device rows
-(each rank gets its shard through a queue and releases it before exit);
+(each rank gets its shard through a queue and releases it before exit),
+and the same 4 ranks as a 2 x 2 block x nv mesh (``mesh_comm``;
+``partition_h2`` over 2 block rows, 8 of the 16 columns per rank): the
+joined rows within 1e-5 of the single device's, each rank's received
+bytes equal to ``matvec_comm_bytes`` at 8 columns, ``halo_pack`` launched;
 then the solve path: ``repro_torch.apps.fractional.solve(512)`` (the §6.4
 fractional-diffusion PCG solve with the GMG V-cycle, N = 262,144, h2_tol
 1e-6, tol 1e-8, its segments replayed from CUDA graphs; its build
@@ -59,7 +71,13 @@ phase, against 512 exact float64 rows, its bases' orthogonality,
 shape of the construction on its recorded input against its plain
 version and beside ``torch.linalg``, the same sketches' bases on the
 plain backend, the card's Gaussians against the CPU's bitwise, and the
-distance to the ``[solve]`` phase's cheb-built K.
+distance to the ``[solve]`` phase's cheb-built K; then the rest of the
+guard path: ``construct_h2_certified`` of that K at n = 512 certified at
+1e-3 against ``kernel_reference_apply`` on the card, the rank-starved
+drill at n = 128 (more than one round, then certified at 1e-2), and
+``solve_with_guards(512)`` twice: with the ``[solve]`` phase's arguments
+(accepted on its primary rung, status 0, iterations within 2 of
+``[solve]``'s) and with the reference's defaults (every rung printed).
 Launch counts are reset just before each path and read just after (graph
 replays launch kernels without their wrappers: logged apart).
 Any failure raises; the last line is the device JSON only on success.
@@ -1291,6 +1309,96 @@ def expected_packs(dshape) -> int:
     return math.ceil(sum(1 for c in caps if c) / MAX_SEGMENTS)
 
 
+MESH = (2, 2)                  # block rows x nv columns of the 2D mesh
+
+
+def _mesh_rank_work(rank: int, shard, on_card: bool, dshape) -> dict:
+    """One rank of the 2D mesh (rank ``blk * MESH[1] + nv``): its
+    block-row ``Comm`` from ``mesh_comm`` and the halo-plan HGEMV on its
+    ``[n_local, nv / MESH[1]]`` slice; launches and bytes of one call,
+    then its median time."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.comm import mesh_comm
+    from repro_torch.core.dist import make_dist_matvec
+    from repro_torch.kernels import ops
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    d, x = shard
+    del shard
+    comm, nv = mesh_comm(*MESH)
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    mv = make_dist_matvec(dshape, comm, "halo-plan", backend="cuda")
+    ops.reset_launch_counts()
+    comm.reset_counts()
+    y = mv(d, x)
+    sync()
+    res = {"blk": comm.rank, "nv": nv, "launches": ops.launch_counts(),
+           "recv_bytes": comm.recv_bytes, "y": y.cpu()}
+    ts = []
+    for i in range(13):
+        dist.barrier()
+        sync()
+        t = time.perf_counter()
+        mv(d, x)
+        sync()
+        dist.barrier()
+        if i >= 3:
+            ts.append((time.perf_counter() - t) * 1e3)
+    res["hgemv_ms"] = statistics.median(ts)
+    return res
+
+
+def mesh_phase(torch, state: dict, device: str = "cuda") -> dict:
+    """The distributed HGEMV on a ``MESH`` block x nv mesh of ``DIST_P``
+    spawned gloo ranks: ``partition_h2`` over ``MESH[0]`` block rows, each
+    rank its block row's shard and its nv columns of x; the joined rows
+    held to the single-device HGEMV (1e-5), each rank's received bytes to
+    ``matvec_comm_bytes`` at ``DIST_NV / MESH[1]`` columns, and
+    ``halo_pack`` launched."""
+    from repro_torch.core.dist import (local_shard, matvec_comm_bytes,
+                                       mesh_join, mesh_slice, partition_h2)
+    t_phase = time.perf_counter()
+    on_card = device == "cuda"
+    shape, data, x, y = state["shape"], state["data"], state["x"], state["y"]
+    p_blk, p_nv = MESH
+    dshape, ddata = partition_h2(shape, data, p_blk, device=device)
+    shards = [(local_shard(dshape, ddata, r // p_nv),
+               mesh_slice(x, dshape, r, p_nv).contiguous())
+              for r in range(p_blk * p_nv)]
+    ranks = run_ranks(torch, _mesh_rank_work, (dshape,), shards, device)
+    del shards, ddata
+    if on_card:
+        torch.cuda.ipc_collect()
+    w = DIST_NV // p_nv
+    model = matvec_comm_bytes(dshape, w, "halo-plan")
+    packs = expected_packs(dshape)
+    ym = mesh_join([r["y"] for r in ranks], p_nv).to(y.device)
+    rel = ((ym - y).norm() / y.norm()).item()
+    got_bytes = [r["recv_bytes"] for r in ranks]
+    got_packs = [r["launches"]["halo_pack"] for r in ranks]
+    t_mv = statistics.median(r["hgemv_ms"] for r in ranks)
+    log(f"[dist] {p_blk} x {p_nv} block x nv mesh ({p_blk * p_nv} ranks, "
+        f"rank = blk * {p_nv} + nv; partition_h2 p={p_blk}, {w} of "
+        f"{DIST_NV} columns per rank): joined rows vs single-device "
+        f"h2_matvec {rel:.3e} (tol 1e-5); received bytes per rank "
+        f"{got_bytes} (model {model}); halo_pack launches per rank "
+        f"{got_packs} (from dshape {packs}); median HGEMV {t_mv:.3f} ms "
+        f"(host clock, barrier + synchronize; median over ranks)")
+    require(bool(torch.isfinite(ym).all()) and ym.shape == y.shape,
+            "mesh HGEMV output")
+    require(rel <= 1e-5, f"mesh HGEMV vs single device {rel:.3e}")
+    require(got_bytes == [model] * len(ranks),
+            f"mesh received bytes {got_bytes} != model {model}")
+    require(all(c == packs and c > 0 for c in got_packs),
+            f"mesh halo_pack launches {got_packs} != {packs}")
+    launches = {k: sum(r["launches"][k] for r in ranks)
+                for k in ranks[0]["launches"]}
+    return dict(rel_single=rel, recv_bytes=got_bytes[0], model_bytes=model,
+                hgemv_ms=t_mv, launches=launches,
+                phase_s=time.perf_counter() - t_phase)
+
+
 def dist_phase(torch, timer, state: dict, results: dict,
                device: str = "cuda") -> dict:
     """Partition the main path's operator over ``DIST_P`` ranks on the card
@@ -1301,6 +1409,7 @@ def dist_phase(torch, timer, state: dict, results: dict,
     so the launch checks fail there)."""
     from repro_torch.core.dist import local_shard, matvec_comm_bytes, \
         partition_h2
+    from repro_torch.guard import validate_dist_h2
 
     t_phase = time.perf_counter()
     shape, data, x, y = state["shape"], state["data"], state["x"], state["y"]
@@ -1316,6 +1425,14 @@ def dist_phase(torch, timer, state: dict, results: dict,
     log(f"[dist] partition_h2 p={DIST_P}: {t_part:.3f} s; caps per level "
         f"{dshape.br_caps}, dense caps {dshape.dense_caps}, radius "
         f"{dshape.br_radius}/{dshape.dense_radius}")
+    sync()
+    t0 = time.perf_counter()
+    rep = validate_dist_h2(dshape, ddata)
+    sync()
+    t_vdist = time.perf_counter() - t0
+    log(f"[guard] validate_dist_h2 of the p={DIST_P} partition: "
+        f"{rep.summary()}; {t_vdist:.3f} s")
+    require(rep.ok, f"validate_dist_h2: {rep.summary()}")
     if on_card:
         halo_pack_timed(torch, timer, dshape, ddata, results)
 
@@ -1331,6 +1448,7 @@ def dist_phase(torch, timer, state: dict, results: dict,
         torch.cuda.ipc_collect()
     parent_peak = torch.cuda.max_memory_allocated() if on_card else 0
 
+    mesh = mesh_phase(torch, state, device)
     r0 = ranks[0]
     log(f"[dist] transport: {r0['backend']}, host staging "
         f"{'on' if r0['host_staged'] else 'off'} (one card: NCCL refuses "
@@ -1364,8 +1482,8 @@ def dist_phase(torch, timer, state: dict, results: dict,
                 f"rank {r} halo_pack launches {packs} != {want_packs}")
         require(res["recv_bytes"] == model,
                 f"rank {r} received {res['recv_bytes']} != model {model}")
-    launches = {k: sum(res["launches_path"][k] for res in ranks)
-                for k in r0["launches_path"]}
+    launches = {k: sum(res["launches_path"][k] for res in ranks) +
+                mesh["launches"][k] for k in r0["launches_path"]}
     routes = {name: {r: sum(res["routes_path"][name][r] for res in ranks)
                      for r in rr} for name, rr in r0["routes_path"].items()}
     keys = ("hgemv_ms", "hgemv_plain_ms", "hgemv_allgather_ms",
@@ -1391,8 +1509,11 @@ def dist_phase(torch, timer, state: dict, results: dict,
         f"{peak_ranks} bytes")
     t_phase = time.perf_counter() - t_phase
     log(f"[dist] phase took {t_phase:.1f} s (partition {t_part:.1f} s, "
-        f"ranks {t_ranks:.1f} s)")
+        f"ranks {t_ranks:.1f} s, {MESH[0]} x {MESH[1]} mesh "
+        f"{mesh['phase_s']:.1f} s)")
     return dict(launches=launches, routes=routes, rel_single=worst,
+                validate_dist_s=t_vdist,
+                mesh={k: v for k, v in mesh.items() if k != "launches"},
                 rel_compressed=worst_c,
                 packs_per_hgemv=want_packs, recv_bytes=r0["recv_bytes"],
                 staged_bytes=r0["staged_bytes"], phase_ms=phases,
@@ -2484,6 +2605,235 @@ def sketch_phase(torch, timer, keep, device: str = "cuda",
         launches=launches, routes=routes, phase_s=t_phase)
 
 
+# ---------------------------------------------------------------------------
+# guard phase: validate, certify, the drills, the certified sketch and the
+# guarded solve (repro_torch.guard, solve_with_guards)
+# ---------------------------------------------------------------------------
+
+GUARD_PROBES = 8
+GUARD_OP_TOL = 5e-3            # compressed vs uncompressed (the main path's)
+GUARD_SKETCH_TOL = 1e-3        # the sketch-built K against the kernel itself
+GUARD_REF_CHUNK = 256          # rows per float64 strip of the kernel apply
+STARVED_N = 128                # the rank-starved drill: N = 16,384
+STARVED_TOL = 1e-2             # the reference's drill certificate
+STARVED_ROUNDS = 4
+GUARD_ITER_SLACK = 2           # the guarded primary rung vs [solve]
+
+
+def _mem_reset(torch, on_card: bool) -> None:
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def guard_operator_phase(torch, state: dict, device: str = "cuda") -> dict:
+    """The guard path's first part, on the main path's operators at
+    N = 2^20 (launches counted from reset to end): ``validate_h2`` of the
+    uncompressed and the compressed operator, timed; the compressed HGEMV
+    certified against the uncompressed one (``GUARD_PROBES`` probes,
+    ``GUARD_OP_TOL``); and ``drill_corrupt_operator`` in ``"scale"`` and
+    ``"nan"`` mode on shallow copies of the compressed operator with
+    ``backend="cuda"`` (``s`` rewritten, ``s_mar`` left), each caught by
+    ``validate_h2`` and failing its certificate against the healthy
+    HGEMV; the healthy operator validated again after.  The probes are 8
+    columns wide, so ``coupling_mv`` takes its ``general`` route here:
+    the routes are logged, not required."""
+    import dataclasses
+    from repro_torch import guard as tg
+    from repro_torch.core.matvec import h2_matvec
+
+    on_card = device == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    shape, data = state["shape"], state["data"]
+    cshape, cdata = state["cshape"], state["cdata"]
+    t_phase = time.perf_counter()
+    _mem_reset(torch, on_card)
+    start = tally_start()
+    out: dict = {}
+
+    def timed(fn):
+        sync()
+        t0 = time.perf_counter()
+        r = fn()
+        sync()
+        return r, time.perf_counter() - t0
+
+    for what, s_, d_ in (("uncompressed", shape, data),
+                         ("compressed", cshape, cdata)):
+        rep, t = timed(lambda: tg.validate_h2(s_, d_))
+        log(f"[guard] validate_h2 {what} N={s_.n}: {rep.summary()}; "
+            f"orthogonality {rep.orthogonality:.3e}; {t:.3f} s")
+        require(rep.ok, f"validate_h2 {what}: {rep.summary()}")
+        out[what] = dict(validate_s=t, orthogonality=rep.orthogonality,
+                         warnings=rep.warnings)
+
+    def healthy(x):
+        return h2_matvec(cshape, cdata, x, "cuda")
+
+    cert, t = timed(lambda: tg.certify_matvec(
+        healthy, lambda x: h2_matvec(shape, data, x, "cuda"), shape.n,
+        probes=GUARD_PROBES, tol=GUARD_OP_TOL, device=device))
+    log(f"[guard] certify_matvec compressed vs uncompressed HGEMV "
+        f"({GUARD_PROBES} probes): rel_err {cert.rel_err:.3e} (tol "
+        f"{GUARD_OP_TOL:g}), ok {cert.ok}; {t:.3f} s")
+    require(cert.ok, f"compressed operator not certified: {cert.rel_err}")
+    out["certify"] = dict(rel_err=cert.rel_err, s=t)
+    drills = {}
+    for mode, sign in (("scale", "incoherent"), ("nan", "non-finite")):
+        bad = dataclasses.replace(cdata, s=list(cdata.s),
+                                  s_mar=list(cdata.s_mar))
+        desc = tg.drill_corrupt_operator(bad, mode=mode, backend="cuda")
+        rep, t_val = timed(lambda: tg.validate_h2(cshape, bad))
+        c, t_cert = timed(lambda: tg.certify_matvec(
+            lambda x: h2_matvec(cshape, bad, x, "cuda"), healthy, shape.n,
+            probes=GUARD_PROBES, tol=GUARD_OP_TOL, device=device))
+        caught = any(sign in e for e in rep.errors)
+        log(f"[guard] drill {mode} (backend=cuda): {desc}; validate_h2 "
+            f"{'caught' if not rep.ok and caught else 'MISSED'} it "
+            f"({rep.summary()}; {t_val:.3f} s); certificate vs the "
+            f"healthy HGEMV rel_err {c.rel_err:.3e}, ok {c.ok} "
+            f"({t_cert:.3f} s)")
+        require(not rep.ok and caught, f"validate_h2 missed the {mode} "
+                f"drill: {rep.summary()}")
+        require(not c.ok, f"the {mode} drill certified: {c.rel_err}")
+        drills[mode] = dict(desc=desc, errors=rep.errors[:4],
+                            rel_err=c.rel_err, validate_s=t_val)
+        del bad, rep
+    rep = tg.validate_h2(cshape, cdata, check_orth=False)
+    require(rep.ok, f"the healthy operator changed: {rep.summary()}")
+    sync()
+    launches, routes, _ = launches_that_ran(start)
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    t_phase = time.perf_counter() - t_phase
+    log(f"[guard] operator checks: coupling_mv by route "
+        f"{routes.get('coupling_mv')} (nv = {GUARD_PROBES} probes: "
+        f"warp16 needs nv % 16 == 0); max_memory_allocated {peak} bytes; "
+        f"{t_phase:.1f} s")
+    out.update(drills=drills, launches=launches, routes=routes,
+               max_memory_allocated=peak, phase_s=t_phase)
+    return out
+
+
+def guard_phase(torch, solve_iters: int, device: str = "cuda",
+                n: int = SKETCH_N, starved_n: int = STARVED_N,
+                solve_n: int = SOLVE_N) -> dict:
+    """The guard path's second part (launches counted from reset to end,
+    graph replays included): ``construct_h2_certified`` of K of the §6.4
+    problem at ``n`` with the ``[sketch]`` phase's options, certified at
+    ``GUARD_SKETCH_TOL`` against ``kernel_reference_apply`` on the card;
+    the rank-starved drill at ``starved_n`` (must need more than one round,
+    then certify); ``solve_with_guards(solve_n)`` with the ``[solve]``
+    phase's arguments (accepted on its primary rung, status 0, iterations
+    within ``GUARD_ITER_SLACK`` of ``solve_iters``) and with the
+    reference's defaults (every rung walked printed).
+    ``device="cpu"`` rehearses it at small sizes (no kernel runs there)."""
+    from repro_torch import guard as tg
+    from repro_torch.apps import fractional as pf
+    from repro_torch.core.kernels_fn import fractional_kernel_2d
+    from repro_torch.obs.trace import phase_times
+    from repro_torch.solvers import krylov
+
+    on_card = device == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    t_phase = time.perf_counter()
+    _mem_reset(torch, on_card)
+    start = tally_start()
+    tg.reset_guard_counters()
+    kern = fractional_kernel_2d(0.75)
+    out: dict = {}
+
+    sync()
+    t0 = time.perf_counter()
+    with phase_times(sync) as pt:
+        shape, data, _, _, cert, rounds = tg.construct_h2_certified(
+            pf.interior_grid(n), kern, 64, 0.9, cert_tol=GUARD_SKETCH_TOL,
+            probes=GUARD_PROBES, chunk=GUARD_REF_CHUNK,
+            sketch_opts=SKETCH_OPTS, device=device)
+    t_cert = time.perf_counter() - t0
+    t_ref = pt.get("guard/certify", 0.0) / 1e3
+    log(f"[guard] construct_h2_certified K n={n} (N={shape.n}, "
+        f"{SKETCH_OPTS}): {rounds} round(s), ranks {shape.ranks}, "
+        f"rel_err {cert.rel_err:.3e} against kernel_reference_apply "
+        f"(float64 strips of {GUARD_REF_CHUNK} rows, {shape.n ** 2:.3e} "
+        f"entries; tol {GUARD_SKETCH_TOL:g}), ok {cert.ok}; {t_cert:.2f} s "
+        f"(certificate {t_ref:.2f} s, synchronised phases)")
+    require(cert.ok, f"sketch-built K not certified: {cert.rel_err}")
+    out["certified_sketch"] = dict(n=shape.n, rounds=rounds,
+                                   ranks=shape.ranks, rel_err=cert.rel_err,
+                                   s=t_cert, certificate_s=t_ref)
+    del data
+
+    sync()
+    t0 = time.perf_counter()
+    sshape, sdata, _, _, scert, srounds = tg.construct_h2_certified(
+        pf.interior_grid(starved_n), kern, 64, 0.9, cert_tol=STARVED_TOL,
+        probes=GUARD_PROBES, max_rounds=STARVED_ROUNDS,
+        chunk=GUARD_REF_CHUNK, sketch_opts=tg.drill_rank_starved(),
+        device=device)
+    sync()
+    t_starved = time.perf_counter() - t0
+    counters = dict(tg.GUARD_COUNTERS)
+    log(f"[guard] rank-starved drill n={starved_n} (N={sshape.n}, "
+        f"{tg.drill_rank_starved()}): {srounds} round(s), ranks "
+        f"{sshape.ranks}, rel_err {scert.rel_err:.3e} (tol {STARVED_TOL:g})"
+        f", ok {scert.ok}; counters {counters}; {t_starved:.2f} s")
+    require(scert.ok and srounds > 1,
+            f"rank-starved drill: {srounds} rounds, ok {scert.ok}")
+    out["rank_starved"] = dict(n=sshape.n, rounds=srounds,
+                               ranks=sshape.ranks, rel_err=scert.rel_err,
+                               s=t_starved, counters=counters)
+    del sdata
+
+    def ladder(what, **kw):
+        captures0 = dict(krylov.TRACE_COUNTS)
+        sync()
+        t0 = time.perf_counter()
+        g = pf.solve_with_guards(solve_n, device=device, **kw)
+        sync()
+        t = time.perf_counter() - t0
+        captures = {k: v - captures0[k] for k, v in
+                    krylov.TRACE_COUNTS.items() if v != captures0[k]}
+        for name, r in g["rungs"].items():
+            log(f"[guard] solve_with_guards({solve_n}) {what}: rung {name}: "
+                + (f"status {r['status']}, {r['iters']} iterations, relres "
+                   f"{r['relres']:.3e}, " if "iters" in r else "raised, ")
+                + f"{r['seconds']:.3f} s (its graph capture included)")
+        log(f"[guard] solve_with_guards({solve_n}) {what}: attempts "
+            f"{g['attempts']}; accepted rung "
+            f"{g['rung'] if g['guard_ok'] else 'none (ladder exhausted)'}; "
+            f"status {g['status']}, {g['iters']} iterations, relres "
+            f"{g['relres']:.3e}; graph captures {captures}; whole call "
+            f"{t:.2f} s (build {sum(g['timings'].values()):.2f} s)")
+        return dict(attempts=g["attempts"], rung=g["rung"],
+                    guard_ok=g["guard_ok"], status=g["status"],
+                    iters=g["iters"], relres=g["relres"], rungs=g["rungs"],
+                    captures=captures, s=t), g
+
+    out["solve"], g = ladder("with the [solve] phase's arguments",
+                             **SOLVE_ARGS)
+    require(g["guard_ok"] and g["rung"] == "primary" and
+            g["status"] == 0 and
+            abs(g["iters"] - solve_iters) <= GUARD_ITER_SLACK,
+            f"guarded solve: rung {g['rung']}, status {g['status']}, "
+            f"{g['iters']} iterations against {solve_iters}")
+    del g
+    out["solve_defaults"], g = ladder("with the reference's defaults")
+    require(g["attempts"][0][0] == "primary" and
+            all(name in g["rungs"] for name, _ in g["attempts"]),
+            "the default ladder did not record its rungs")
+    del g
+    sync()
+    launches, routes, _ = launches_that_ran(start)
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    t_phase = time.perf_counter() - t_phase
+    log(f"[guard] certified constructions and guarded solves: coupling_mv "
+        f"by route {routes.get('coupling_mv')}; max_memory_allocated {peak}"
+        f" bytes; {t_phase:.1f} s")
+    out.update(launches=launches, routes=routes, max_memory_allocated=peak,
+               phase_s=t_phase)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--log2n", type=int, default=20,
@@ -2541,10 +2891,17 @@ def main() -> int:
                                      state["x"], what)
         for what, s_, d_ in (("uncompressed", "shape", "data"),
                              ("compressed", "cshape", "cdata"))}
-    del state["cshape"], state["cdata"]
     for name in ("batched_gemm", "coupling_mv", "batched_qr", "batched_svd"):
         require(main["launches"][name] > 0,
                 f"{name} was not launched on the main path")
+    guard_ops = guard_operator_phase(torch, state)
+    del state["cshape"], state["cdata"]
+    for name, n in guard_ops["launches"].items():
+        log(f"[kernels] {name}: {n} launches on the guard path (operator "
+            f"checks)")
+    for name in ("batched_gemm", "coupling_mv"):
+        require(guard_ops["launches"][name] > 0,
+                f"{name} was not launched by the operator checks")
     log(f"[memory] max_memory_allocated {torch.cuda.max_memory_allocated()}"
         f" bytes")
     dist = dist_phase(torch, timer, state, results)
@@ -2567,12 +2924,22 @@ def main() -> int:
     for name, n in dsolve["launches"].items():
         log(f"[kernels] {name}: {n} launches on the distributed solve path")
     sketch = sketch_phase(torch, timer, keep)
+    solve_iters = keep["iters"]
     del keep
     for name, n in sketch["launches"].items():
         log(f"[kernels] {name}: {n} launches on the sketch path")
     for name in ("batched_gemm", "coupling_mv", "batched_qr", "batched_svd"):
         require(sketch["launches"][name] > 0,
                 f"{name} was not launched on the sketch path")
+    guard = guard_phase(torch, solve_iters)
+    guard_launches = {k: guard_ops["launches"][k] + guard["launches"][k]
+                      for k in KERNELS}
+    for name, n in guard_launches.items():
+        log(f"[kernels] {name}: {n} launches on the guard path")
+    for name in ("batched_gemm", "coupling_mv", "batched_qr", "batched_svd"):
+        require(guard["launches"][name] > 0,
+                f"{name} was not launched by the certified constructions and "
+                f"guarded solves")
     kernels = []
     for name in KERNELS:
         r = results[name]
@@ -2582,7 +2949,7 @@ def main() -> int:
             replaces=REPLACES[name],
             launches=(main["launches"][name] + dist["launches"][name] +
                       solve["launches"][name] + dsolve["launches"][name] +
-                      sketch["launches"][name]),
+                      sketch["launches"][name] + guard_launches[name]),
             max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"]))
@@ -2603,9 +2970,14 @@ def main() -> int:
               **detail_qr_svd}
     ssummary = {k: v for k, v in solve.items() if k != "launches"}
     ksummary = {k: v for k, v in sketch.items() if k != "launches"}
+    gsummary = {"operator_checks": {k: v for k, v in guard_ops.items()
+                                    if k != "launches"},
+                "validate_dist_s": dist["validate_dist_s"],
+                **{k: v for k, v in guard.items() if k != "launches"},
+                "launches": guard_launches}
     log(json.dumps({"main_path": summary, "distributed": dsummary,
                     "solve": ssummary, "distributed_solve": dsolve,
-                    "sketch": ksummary,
+                    "sketch": ksummary, "guard": gsummary,
                     "kernel_detail": detail, "card": smi}))
     log(smi)
     log(json.dumps({"kernels": kernels}))

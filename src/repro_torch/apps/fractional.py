@@ -30,8 +30,9 @@ stencil's row halo riding the inbound lanes, merges the H^2 exchange into
 one all-to-all and smooths the V-cycle on deep halos;
 ``dist_solve_comm_bytes`` models the bytes a rank receives per iteration.
 
-The guard ladder (``solve_with_guards``) and the elastic solve are not
-ported yet (ROADMAP Queue 1 items 6 and 7).
+``solve_with_guards`` runs ``solve`` through the guard escalation ladder
+(``repro_torch.guard``).  The elastic solve is not ported yet (ROADMAP
+Queue 1 item 7).
 """
 from __future__ import annotations
 
@@ -55,6 +56,7 @@ from repro_torch.core.halo import (build_transpose_plan, transpose_a2a,
 from repro_torch.core.kernels_fn import (diffusivity_2d, fractional_kernel_2d,
                                          fractional_kernel_2d_positive)
 from repro_torch.core.matvec import h2_matvec
+from repro_torch.guard.escalate import fp64_scalars, run_with_guards
 from repro_torch.guard.status import worst_status
 from repro_torch.obs.trace import phase
 from repro_torch.solvers import graphs
@@ -243,6 +245,32 @@ def make_preconditioner(prob: Dict, n_cycles: int = 2, nu: int = 3,
     return precond
 
 
+def _setup(n: int, beta: float, h2_tol: float, use_precond: bool,
+           construction: str, device, backend: str) -> Tuple:
+    """The problem, operator, right-hand side and preconditioner of a
+    solve on ``device``; ``timings`` gains ``mg_build``."""
+    dev = torch.device(device)
+    prob = FractionalProblem(n, beta=beta, h2_tol=h2_tol,
+                             construction=construction, device=device,
+                             backend=backend).build()
+    apply_a = make_operator(prob, backend=backend)
+    b = torch.ones((n * n,), dtype=torch.float32, device=dev) * \
+        (2.0 / n) ** 2                                      # h^2 * 1
+    _sync(dev)
+    t0 = time.perf_counter()
+    pre = make_preconditioner(prob, device=device) if use_precond else None
+    _sync(dev)
+    prob["timings"]["mg_build"] = time.perf_counter() - t0
+    return prob, apply_a, b, pre
+
+
+def _result(res, n: int, prob: Dict) -> Dict:
+    return {"u": res.x.reshape(n, n), "iters": int(res.iters),
+            "relres": float(res.relres), "converged": bool(res.converged),
+            "status": worst_status(res.status), "history": res.res_history,
+            "prob": prob, "timings": prob["timings"]}
+
+
 def solve(n: int, beta: float = 0.75, tol: float = 1e-8,
           h2_tol: float = 1e-6, use_precond: bool = True,
           construction: str = "cheb", method: str = "pcg",
@@ -260,19 +288,8 @@ def solve(n: int, beta: float = 0.75, tol: float = 1e-8,
     ``host_syncs`` (flags the solve read)."""
     if method not in ("pcg", "gmres"):
         raise ValueError(f"unknown method {method!r}")
-    dev = torch.device(device)
-    prob = FractionalProblem(n, beta=beta, h2_tol=h2_tol,
-                             construction=construction, device=device,
-                             backend=backend).build()
-    timings = prob["timings"]
-    apply_a = make_operator(prob, backend=backend)
-    b = torch.ones((n * n,), dtype=torch.float32, device=dev) * \
-        (2.0 / n) ** 2                                      # h^2 * 1
-    _sync(dev)
-    t0 = time.perf_counter()
-    pre = make_preconditioner(prob, device=device) if use_precond else None
-    _sync(dev)
-    timings["mg_build"] = time.perf_counter() - t0
+    prob, apply_a, b, pre = _setup(n, beta, h2_tol, use_precond,
+                                   construction, device, backend)
     syncs = graphs.HOST_SYNCS
     t0 = time.perf_counter()
     if method == "pcg":
@@ -282,13 +299,70 @@ def solve(n: int, beta: float = 0.75, tol: float = 1e-8,
     else:
         res = _gmres(apply_a, b, pre, m=30, tol=tol, maxiter=maxiter,
                      graph=graph)
-    _sync(dev)
-    timings["solve"] = time.perf_counter() - t0
-    return {"u": res.x.reshape(n, n), "iters": int(res.iters),
-            "relres": float(res.relres), "converged": bool(res.converged),
-            "status": worst_status(res.status), "history": res.res_history,
-            "prob": prob, "timings": timings,
+    _sync(b.device)
+    prob["timings"]["solve"] = time.perf_counter() - t0
+    return {**_result(res, n, prob),
             "host_syncs": graphs.HOST_SYNCS - syncs}
+
+
+def solve_with_guards(n: int, beta: float = 0.75, tol: float = 1e-8,
+                      h2_tol: float = 1e-6, use_precond: bool = True,
+                      construction: str = "cheb", maxiter: int = 200,
+                      loose_tol: Optional[float] = None, device="cuda",
+                      backend: str = "cuda", stag_window: int = 30,
+                      graph=None) -> Dict:
+    """``solve`` through the guard escalation ladder (DESIGN.md §11).
+
+    Rungs: (1) the primary PCG; (2) the same PCG with float64 scalar
+    accumulation (recovers dot-product-rounding stagnation); (3) GMRES(30)
+    at ``loose_tol`` (default ``100 * tol``) as the last resort.
+    ``device``, ``backend``, ``stag_window`` (the PCG rungs') and ``graph``
+    are ``solve``'s, passed to every rung.  The returned dict is
+    ``solve``'s plus the ladder outcome (``rung``, ``attempts``,
+    ``recovered``, ``guard_ok``) and ``rungs``: for each rung walked, its
+    ``seconds`` (a CUDA graph's capture included) and, unless it raised,
+    its ``iters``, ``relres`` and ``status``.
+    """
+    prob, apply_a, b, pre = _setup(n, beta, h2_tol, use_precond,
+                                   construction, device, backend)
+    rungs: Dict[str, Dict] = {}
+
+    def timed(name, fn):
+        def rung():
+            rungs[name] = {}
+            t0 = time.perf_counter()
+            try:
+                res = fn()
+                _sync(b.device)
+            finally:
+                rungs[name]["seconds"] = time.perf_counter() - t0
+            rungs[name].update(iters=int(res.iters),
+                               relres=float(res.relres),
+                               status=worst_status(res.status))
+            return res
+        return name, rung
+
+    def primary():
+        return _pcg(apply_a, b, pre, tol=tol, maxiter=maxiter,
+                    stag_window=stag_window, graph=graph)
+
+    def fp64_rung():
+        with fp64_scalars() as sdt:
+            return _pcg(apply_a, b, pre, tol=tol, maxiter=maxiter,
+                        scalar_dtype=sdt, stag_window=stag_window,
+                        graph=graph)
+
+    def loose_rung():
+        lt = loose_tol if loose_tol is not None else 100.0 * tol
+        return _gmres(apply_a, b, pre, m=30, tol=lt, maxiter=maxiter,
+                      graph=graph)
+
+    out = run_with_guards([timed("primary", primary),
+                           timed("fp64-scalars", fp64_rung),
+                           timed("gmres-loose", loose_rung)])
+    return {**_result(out.result, n, prob), "rung": out.rung,
+            "attempts": out.attempts, "recovered": out.recovered,
+            "guard_ok": out.ok, "rungs": rungs}
 
 
 # ----------------------------------------------------------------------

@@ -22,6 +22,11 @@ The transport is chosen once, from the group's backend:
 ``recv_bytes`` counts the bytes each collective brought to this rank over
 the wire (a rank's own slice of a gather or all-to-all is not counted),
 the quantity ``dist.matvec_comm_bytes`` models.
+
+``mesh_comm`` lays the world out as the reference's 2D ``(blk, nv)`` mesh
+(``make_dist_matvec(..., nv_axis=)``) and gives a rank its ``Comm`` over
+its block-row group: the collectives of the distributed HGEMV run along
+``blk`` alone.
 """
 from __future__ import annotations
 
@@ -62,6 +67,9 @@ class Comm:
             raise ValueError(f"unsupported process-group backend "
                              f"{self.backend!r}")
         self.host_staged = self.backend == "gloo"
+        # point-to-point ops name their peer by its rank in the world
+        self._world_rank = (lambda r: r) if self.group is dist.group.WORLD \
+            else (lambda r: dist.get_global_rank(self.group, r))
         self.recv_bytes = 0
         self.staged_bytes = 0
 
@@ -129,11 +137,11 @@ class Comm:
         sent = self._wire(x) if dst else None
         ops = []
         if dst:
-            ops.append(dist.P2POp(dist.isend, sent, dst[0],
+            ops.append(dist.P2POp(dist.isend, sent, self._world_rank(dst[0]),
                                   group=self.group, tag=tag))
         if src:
-            ops.append(dist.P2POp(dist.irecv, out, src[0], group=self.group,
-                                  tag=tag))
+            ops.append(dist.P2POp(dist.irecv, out, self._world_rank(src[0]),
+                                  group=self.group, tag=tag))
             self.recv_bytes += x.numel() * x.element_size()
         works = dist.batch_isend_irecv(ops) if ops else []
         return Pending(works, out, self._finisher(x), sent)
@@ -175,3 +183,24 @@ class Comm:
 
     def barrier(self) -> None:
         dist.barrier(group=self.group)
+
+
+def mesh_comm(p_blk: int, p_nv: int) -> Tuple[Comm, int]:
+    """This rank's place in a ``p_blk x p_nv`` mesh of the world's ranks.
+
+    The ranks are laid out as ``jax.make_mesh((p_blk, p_nv))`` lays out
+    devices: rank ``blk * p_nv + nv``.  The operator is replicated across
+    ``nv`` and the vector batch sharded over it, so the ``p_blk`` ranks of
+    one nv column form a block-row group.  Returns ``(comm, nv)``: this
+    rank's ``Comm`` over its group (``comm.rank`` is its ``blk``) and its
+    nv index.  Every rank creates every group, in the same order, as
+    ``torch.distributed.new_group`` requires (a rank that skipped one
+    would hang the others)."""
+    world = dist.get_world_size()
+    if world != p_blk * p_nv:
+        raise ValueError(f"a {p_blk} x {p_nv} mesh needs {p_blk * p_nv} "
+                         f"ranks, the world has {world}")
+    nv = dist.get_rank() % p_nv
+    groups = [dist.new_group([b * p_nv + c for b in range(p_blk)])
+              for c in range(p_nv)]
+    return Comm(groups[nv]), nv

@@ -27,8 +27,13 @@ Communication modes of the off-diagonal coupling phase (paper §4.1):
 The products are plain PyTorch (the reference leaves them to XLA as
 einsums); the send packing runs the ``halo_pack`` kernel and the
 compression's QRs and SVDs the ``batched_qr``/``batched_svd`` kernels when
-``backend="cuda"`` and the tensors are on the card.  The 2D mesh
-(``nv_axis``) is not ported yet.
+``backend="cuda"`` and the tensors are on the card.
+
+The 2D mesh (the reference's ``nv_axis``): ``p_blk * p_nv`` ranks, the
+vector batch sharded over ``nv`` and the operator replicated across it
+(``comm.mesh_comm`` gives a rank its block-row ``Comm``).  A rank runs
+``make_dist_matvec`` over that ``Comm`` on its ``[n_local, nv / p_nv]``
+slice (``mesh_slice``); ``mesh_join`` puts the result back together.
 """
 from __future__ import annotations
 
@@ -175,6 +180,25 @@ def local_shard(dshape: DistH2Shape, ddata: DistH2Data, rank: int
     if all(a is b for a, b in zip(ddata.f_br, ddata.e_br)):
         d.f_br = list(d.e_br)
     return d
+
+
+def mesh_slice(x: torch.Tensor, dshape: DistH2Shape, rank: int, p_nv: int
+               ) -> torch.Tensor:
+    """Rank ``rank``'s ``[n_local, nv / p_nv]`` slice of ``x`` ``[N, nv]``
+    on a ``p x p_nv`` mesh (rank ``blk * p_nv + nv``, ``P("blk", "nv")``)."""
+    blk, c = divmod(rank, p_nv)
+    nloc, w = dshape.n_local(), x.shape[-1] // p_nv
+    if w * p_nv != x.shape[-1]:
+        raise ValueError(f"nv={x.shape[-1]} is not a multiple of "
+                         f"p_nv={p_nv}")
+    return x[blk * nloc:(blk + 1) * nloc, c * w:(c + 1) * w]
+
+
+def mesh_join(parts: Sequence[torch.Tensor], p_nv: int) -> torch.Tensor:
+    """Inverse of ``mesh_slice``: ``[N, nv]`` from every rank's slice, in
+    rank order."""
+    return torch.cat([torch.cat(list(parts[b:b + p_nv]), dim=-1)
+                      for b in range(0, len(parts), p_nv)], dim=0)
 
 
 # ---------------------------------------------------------------------------
@@ -733,7 +757,9 @@ def make_dist_matvec(dshape: DistH2Shape, comm: Comm,
     halo-plan send rows with the ``halo_pack`` kernel on CUDA tensors;
     ``schedule`` picks the halo-plan product schedule per level
     (``_use_split``); ``hide_flops > 0`` requests the solver lowering
-    (merged single all-to-all + hide-aware auto).
+    (merged single all-to-all + hide-aware auto).  On a 2D mesh ``comm``
+    is the rank's block-row ``Comm`` (``comm.mesh_comm``) and ``x`` its
+    ``mesh_slice``.
     """
     if backend not in kops.BACKENDS:
         raise ValueError(f"unknown backend {backend!r}")
