@@ -63,7 +63,19 @@ V-cycle, rank-order psums; eager), every rank held to the same
 iterations and status, the gathered u to the single-device one (1e-4),
 an iteration's received bytes to ``dist_solve_comm_bytes``, with one
 iteration split by phase, and the two-step schedule held to the fused
-one over 30 iterations; then the sketch path (``[sketch]``): K of the
+one over 30 iterations; then the chaos path (``[chaos]``): the elastic
+solve (``solve_elastic_local``) over the same 4 ranks, each handed the
+whole stacked partition and the grid arrays: the reference's tripwire on
+the distributed solve's final state (the float32 plateau, required under
+the floor of the drills' tol 1e-4 with a margin), a fault-free run at tol
+1e-4 with checkpoints every 10 iterations (exactly the distributed
+solve's iterations and recurrence), a faulted run (a loss to 2 ranks at
+segment 3, re-sharded by ``repartition_h2``; a NaN at segment 6 caught
+by the tripwire; a straggler at segment 8): restarts 2, 0 iterations
+lost to the loss and 10 to the NaN, u within 1e-3, each p = 2 segment's
+bytes equal to the model, ``halo_pack`` launched; then, cut to n = 128
+at tol 2e-5, the elastic run against the monolithic one (bitwise) and
+the bf16 escalation drill; then the sketch path (``[sketch]``): K of the
 §6.4 problem at n = 512 by ``construct_h2(method="sketch")``, split by
 phase, against 512 exact float64 rows, its bases' orthogonality,
 ``solve(128, construction="sketch")`` with graphs, and the black box
@@ -77,7 +89,19 @@ guard path: ``construct_h2_certified`` of that K at n = 512 certified at
 drill at n = 128 (more than one round, then certified at 1e-2), and
 ``solve_with_guards(512)`` twice: with the ``[solve]`` phase's arguments
 (accepted on its primary rung, status 0, iterations within 2 of
-``[solve]``'s) and with the reference's defaults (every rung printed).
+``[solve]``'s) and with the reference's defaults (every rung printed);
+then the serve path (``[serve]``): the solver service
+(``repro_torch.serving``) on ``(I + A) x = b`` at N = 2^20, its operator
+(the main path's construction compressed at 1e-5) built by a cache miss,
+a calibration panel for the iterations per request and the time per
+dispatch (beside restarts every 25 iterations, no restart, and the first
+dispatch with the Krylov guards on, which trips their stagnation check),
+a benchmark on the wall clock at twice the panel's service rate (p50,
+p99, throughput, occupancy, a cache hit), the fault drill twice
+(reproducible), both degraded paths (per-column ``pcg`` and
+``degraded="loose"``), the threaded front-end (4 submitters x 8
+requests), every ``ok`` answer recomputed with the plain HGEMV (10 x the
+requests' tol 1e-4), and the span trace.
 Launch counts are reset just before each path and read just after (graph
 replays launch kernels without their wrappers: logged apart).
 Any failure raises; the last line is the device JSON only on success.
@@ -2150,11 +2174,15 @@ def dsolve_phase(torch, keep: dict, device: str = "cuda") -> dict:
                       [pf.local_args(dshape, mg, args, r)
                        for r in range(DIST_P)], device)
     t_ranks = time.perf_counter() - t0
-    del args                        # the ranks are gone: free the shares
+    # the stacked partition stays for [chaos]; the views are gone
+    keep["dsolve_dist"] = (dshape, args[0])
+    del args
     if on_card:
         torch.cuda.ipc_collect()
 
     r0 = ranks[0]
+    keep["dsolve_history"] = r0["history"]
+    keep["dsolve_relres"] = r0["relres"]
     model = pf.dist_solve_comm_bytes(dshape, mg, DSOLVE_MODE,
                                      tcaps=r0["tcaps"], fused=True)
     model_two = pf.dist_solve_comm_bytes(dshape, mg, DSOLVE_MODE,
@@ -2195,6 +2223,7 @@ def dsolve_phase(torch, keep: dict, device: str = "cuda") -> dict:
     log(f"[dsolve] iterations to reach 1e-6 and 1e-7: {rate}; the last 8 "
         f"recurrence residuals: {tails}")
     u = torch.cat([res["x"] for res in ranks]).reshape(n, n)
+    keep["dsolve_u"] = u
     u_rel = ((u.double() - u1.cpu().double()).norm() /
              u1.cpu().double().norm()).item()
     fused_x = torch.cat([res["fused_x"] for res in ranks])
@@ -2256,6 +2285,370 @@ def dsolve_phase(torch, keep: dict, device: str = "cuda") -> dict:
                 build_s=t_build, phase_s=t_phase,
                 max_memory_allocated=max(res["max_memory_allocated"]
                                          for res in ranks))
+
+
+# ---------------------------------------------------------------------------
+# chaos phase: the elastic distributed §6.4 solve (checkpoints, remesh)
+# ---------------------------------------------------------------------------
+
+# the drills' tolerance: float32 evaluation of A leaves the recomputed
+# residual of the n = 512 solution on a plateau (7.8e-4, the [solve]
+# line's "true relres") that the reference's tripwire ``true > 10 * rec +
+# 1e-5`` reads as corruption once the recurrence falls below it / 10; at
+# tol 1e-4 the tripwire's floor 10 * tol + 1e-5 stays above the plateau
+# (required with a margin: a higher plateau fails here, not as a flake)
+CHAOS_TOL = 1e-4
+CHAOS_EVERY = 10
+CHAOS_MAXITER = 500
+CHAOS_PLAN = dict(device_loss_at={3: 2}, nan_at={6}, straggle_at={8: 1000.0})
+CHAOS_STRAGGLER = dict(threshold=3.0, warmup=3)
+CHAOS_ITER_SLACK = 2
+CHAOS_U_TOL = 1e-3             # tol 1e-4 resolves u to about this
+CHAOS_MARGIN = 0.9             # plateau <= margin x the tripwire's floor
+CHAOS_CUT_N = 128              # the cut pieces: N = 16,384
+CHAOS_CUT_EVERY = 4            # the bf16 drill's checkpoint interval
+# the cut pieces' tolerance: the float32 plateau at n = 128 (9.1e-5 on the
+# CPU) is above the tripwire's floor at the reference's tol 1e-8 (1.0e-5)
+# as at n = 512; 2e-5 keeps the floor (2.1e-4) twice above it
+CHAOS_CUT_TOL = 2e-5
+
+
+def _chaos_rank_work(rank: int, payload, on_card: bool, ckpt_root: str,
+                     dsolve_u, dsolve_relres: float) -> dict:
+    """The elastic solves on one rank of the world group: the tripwire on
+    ``[dsolve]``'s final state, the fault-free and the faulted n = 512
+    runs, then the n = 128 pieces (the elastic solve against the
+    monolithic one at tol 1e-8, the bf16 escalation drill).  ``payload``:
+    per n, the grid arrays and the stacked p = 4 partition (CUDA IPC).
+    Returns host tensors and numbers."""
+    import torch
+    from repro_torch.apps import fractional as pf
+    from repro_torch.core.comm import Comm
+    from repro_torch.guard import GUARD_COUNTERS
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.chaos import ChaosPlan
+    from repro_torch.runtime.fault import StragglerMonitor
+    from repro_torch.solvers.krylov import PCGState
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    comm = Comm()
+    dev = torch.device("cuda" if on_card else "cpu")
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    grid, dshape, ddata = payload["main"]
+    n = grid["n"]
+    out: dict = {}
+
+    def summary(r, t):
+        if r["lost_at"] is not None:
+            return dict(r, seconds=t)
+        rep, fin = r["report"], r["parts"]
+        return dict(
+            model_bytes=pf.dist_solve_comm_bytes(
+                fin["dshape"], fin["mg"], r["comm_final"],
+                tcaps=fin["tcaps"], fused=fin["fused"]),
+            lost_at=None, iters=r["iters"], relres=r["relres"],
+            converged=r["converged"], status=r["status"],
+            history=list(r["history"]), true=list(r["true_history"]),
+            u=r["u"].cpu(), p_final=r["p_final"],
+            comm_final=r["comm_final"], restarts=r["restarts"],
+            summary=rep.summary(), seconds=t,
+            events=[dict(kind=e.kind, segment=e.segment, p_from=e.p_from,
+                         p_to=e.p_to, iters_lost=e.iters_lost,
+                         recover_s=e.recover_s) for e in rep.events],
+            flags=list(rep.straggler_flags), seg_wall_s=rep.seg_wall_s,
+            ckpt_save_s=rep.ckpt_save_s,
+            ckpt_overhead_pct=rep.checkpoint_overhead_pct(),
+            segments=r["segments"], remesh_s=r["remesh_s"],
+            restore_s=r["restore_s"])
+
+    comm.barrier()
+    sync()
+    ops.reset_launch_counts()
+
+    # the reference's tripwire on [dsolve]'s final state (tol 1e-8)
+    parts = pf.make_dist_solve_segment(
+        grid, comm, tol=SOLVE_ARGS["tol"], steps=CHAOS_EVERY,
+        maxiter=CHAOS_MAXITER, dist_source=(dshape, ddata), device=dev)
+    b = torch.ones((n * n // comm.p,), dtype=torch.float32, device=dev) * \
+        grid["h"] ** 2
+    rows = n // comm.p
+    x = dsolve_u[rank * rows:(rank + 1) * rows].reshape(-1).to(dev)
+    bn = float(pf._norm(b, comm=comm))
+    st = PCGState(k=torch.zeros((), dtype=torch.int32, device=dev), x=x,
+                  r=b, p=b, rz=b.new_zeros(()),
+                  res=b.new_tensor(dsolve_relres * bn))
+    true_t, rec_t = parts["residual"](b, st)
+    out["tripwire_probe"] = dict(true=float(true_t), rec=float(rec_t))
+    del parts, st, x
+
+    runs = dict(
+        clean=dict(chaos=None, monitor=None),
+        faulted=dict(chaos=ChaosPlan(**{k: dict(v) if isinstance(v, dict)
+                                        else set(v)
+                                        for k, v in CHAOS_PLAN.items()}),
+                     monitor=StragglerMonitor(**CHAOS_STRAGGLER)))
+    for name, kw in runs.items():
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        comm.barrier()
+        sync()
+        t0 = time.perf_counter()
+        r = pf.solve_elastic_local(
+            grid, comm, (dshape, ddata), tol=CHAOS_TOL,
+            maxiter=CHAOS_MAXITER, mode=DSOLVE_MODE,
+            ckpt_dir=f"{ckpt_root}/{name}", ckpt_every=CHAOS_EVERY,
+            device=dev, backend="cuda", **kw)
+        sync()
+        out[name] = summary(r, time.perf_counter() - t0)
+        out[name]["max_memory_allocated"] = \
+            torch.cuda.max_memory_allocated() if on_card else 0
+        del r
+        comm.barrier()
+    del ddata
+
+    # the cut pieces at n = 128, over the whole world again
+    grid, dshape, ddata = payload["cut"]
+    n = grid["n"]
+    comm.barrier()
+    t0 = time.perf_counter()
+    r = pf.solve_elastic_local(
+        grid, comm, (dshape, ddata), tol=CHAOS_CUT_TOL,
+        maxiter=SOLVE_ARGS["maxiter"], mode=DSOLVE_MODE,
+        ckpt_dir=f"{ckpt_root}/cut_clean", ckpt_every=CHAOS_EVERY,
+        device=dev, backend="cuda")
+    sync()
+    out["cut_clean"] = summary(r, time.perf_counter() - t0)
+    del r
+    dsn, mg, stacked = pf.build_dist_problem(grid, comm.p, device=dev,
+                                             dist_source=(dshape, ddata))
+    mono = pf.make_dist_solve_local(
+        dsn, mg, pf.local_args(dsn, mg, stacked, comm.rank), comm, n,
+        grid["h"], mode=DSOLVE_MODE, tol=CHAOS_CUT_TOL,
+        maxiter=SOLVE_ARGS["maxiter"],
+        stag_window=SOLVE_ARGS["stag_window"], backend="cuda")
+    b = torch.ones((n * n // comm.p,), dtype=torch.float32, device=dev) * \
+        grid["h"] ** 2
+    res = mono["fn"](b)
+    out["cut_monolithic"] = dict(iters=int(res.iters), u=res.x.cpu(),
+                                 status=int(res.status))
+    del mono, res, stacked, mg
+    GUARD_COUNTERS.clear()
+    comm.barrier()
+    t0 = time.perf_counter()
+    r = pf.solve_elastic_local(
+        grid, comm, (dshape, ddata), tol=CHAOS_CUT_TOL,
+        maxiter=SOLVE_ARGS["maxiter"], mode="halo-plan-bf16",
+        ckpt_dir=f"{ckpt_root}/cut_bf16", ckpt_every=CHAOS_CUT_EVERY,
+        chaos=ChaosPlan(nan_at={1}), device=dev, backend="cuda")
+    sync()
+    out["cut_bf16"] = summary(r, time.perf_counter() - t0)
+    out["cut_bf16"]["fp32_comm"] = GUARD_COUNTERS["elastic/fp32-comm"]
+    del r, ddata
+    sync()
+    out["launches"] = ops.launch_counts()
+    comm.barrier()
+    return out
+
+
+def _grid_payload(prob, dist_source) -> tuple:
+    """What a chaos rank gets of a problem: its grid arrays (no K) and K's
+    stacked partition ``(dshape, ddata)``."""
+    grid = {k: prob[k] for k in ("kappa", "d_diag", "perm", "unperm",
+                                 "gamma", "h", "n")}
+    return (grid, *dist_source)
+
+
+def chaos_phase(torch, keep: dict, device: str = "cuda",
+                cut_n: int = CHAOS_CUT_N) -> dict:
+    """The elastic distributed §6.4 solve over ``DIST_P`` gloo ranks on
+    the one card (``apps.fractional.solve_elastic_local``): the n = 512
+    problem of ``[solve]`` partitioned in the parent and handed to every
+    rank whole (CUDA IPC), fault-free and under ``CHAOS_PLAN`` (a loss to
+    2 ranks at segment 3, a NaN at segment 6, a straggler at segment 8),
+    then the n = 128 cut pieces.  Holds the fault-free run to
+    ``[dsolve]``'s recurrence, the faulted run to the reference's drill
+    outcomes, the bytes after the remesh to ``dist_solve_comm_bytes``.
+    ``device="cpu"`` rehearses it without a card (``cut_n`` smaller; the
+    launch checks fail there)."""
+    import tempfile
+    from repro_torch.apps import fractional as pf
+    from repro_torch.core.dist import partition_h2
+
+    t_phase = time.perf_counter()
+    on_card = device == "cuda"
+    prob, hist = keep["prob"], keep["dsolve_history"]
+    n = prob["n"]
+    plateau_floor = 10 * CHAOS_TOL + 1e-5
+    t0 = time.perf_counter()
+    cut = pf.FractionalProblem(cut_n, beta=SOLVE_ARGS["beta"],
+                               h2_tol=SOLVE_ARGS["h2_tol"],
+                               device=device).build()
+    payload = {"main": _grid_payload(prob, keep.pop("dsolve_dist")),
+               "cut": _grid_payload(cut, partition_h2(
+                   cut["shape"], cut["data"], DIST_P, device=device))}
+    del cut
+    t_build = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as ckpt_root:
+        t0 = time.perf_counter()
+        ranks = run_ranks(torch, _chaos_rank_work,
+                          (ckpt_root, keep["dsolve_u"],
+                           keep["dsolve_relres"]),
+                          [payload] * DIST_P, device)
+        t_ranks = time.perf_counter() - t0
+    del payload
+    if on_card:
+        torch.cuda.ipc_collect()
+
+    r0 = ranks[0]
+    probe = r0["tripwire_probe"]
+    fires = probe["true"] > 10 * probe["rec"] + 1e-5
+    log(f"[chaos] the reference's tripwire on [dsolve]'s final state "
+        f"(tol {SOLVE_ARGS['tol']:g}): recomputed relres {probe['true']:.3e}"
+        f" (float32 plateau), recurrence {probe['rec']:.3e}: fires "
+        f"{fires}; at tol {CHAOS_TOL:g} its floor 10 tol + 1e-5 = "
+        f"{plateau_floor:.3e} (margin required {CHAOS_MARGIN:g})")
+    require(probe["true"] <= CHAOS_MARGIN * plateau_floor,
+            f"the float32 plateau {probe['true']:.3e} leaves no margin "
+            f"under the tripwire's floor {plateau_floor:.3e} at tol "
+            f"{CHAOS_TOL:g}")
+
+    clean = r0["clean"]
+    want = to_reach(hist, CHAOS_TOL)
+    seg_hist = torch.tensor(clean["history"], dtype=hist.dtype)
+    ks = [s["k"] for s in clean["segments"]]
+    log(f"[chaos] fault-free n={n}, p={DIST_P}, tol {CHAOS_TOL:g}, "
+        f"ckpt_every {CHAOS_EVERY}: {clean['iters']} iterations "
+        f"([dsolve] reaches {CHAOS_TOL:g} at {want}), status "
+        f"{clean['status']}, {len(ks)} segments in {clean['seconds']:.2f} s"
+        f"; checkpoint save per segment (rank 0) "
+        f"{[round(v * 1e3, 2) for v in clean['ckpt_save_s']]} ms, "
+        f"checkpoint_overhead_pct {clean['ckpt_overhead_pct']:.3f}; "
+        f"true relres per segment "
+        f"{[f'{v:.2e}' for v in clean['true']]}; max_memory_allocated "
+        f"{clean['max_memory_allocated']}")
+    for r, res in enumerate(ranks):
+        c = res["clean"]
+        require(c["iters"] == clean["iters"] and
+                c["history"] == clean["history"] and c["status"] == 0,
+                f"rank {r} fault-free run disagrees with rank 0")
+    require(clean["converged"] and clean["restarts"] == 0 and
+            clean["iters"] == want,
+            f"fault-free elastic run took {clean['iters']} iterations, "
+            f"[dsolve] reached {CHAOS_TOL:g} at {want}")
+    require(torch.equal(seg_hist, hist[ks]),
+            "the fault-free segment-end recurrence residuals differ from "
+            "[dsolve]'s history at the same iterations")
+
+    f0 = r0["faulted"]
+    survivors = [res["faulted"] for res in ranks
+                 if res["faulted"]["lost_at"] is None]
+    lost = [res["faulted"]["lost_at"] for res in ranks]
+    ev = {e["kind"]: e for e in f0["events"]}
+    u_clean = torch.cat([res["clean"]["u"] for res in ranks]).reshape(n, n)
+    u_fault = torch.cat([s["u"] for s in survivors]).reshape(n, n)
+    u_rel = ((u_fault.double() - u_clean.double()).norm() /
+             u_clean.double().norm()).item()
+    after = [s for s in f0["segments"] if s["p"] == 2]
+    # a segment: CHAOS_EVERY iterations (masked ones move their bytes
+    # too) and the segment's one psum of ||b||
+    model2 = f0["model_bytes"]
+    seg_model2 = CHAOS_EVERY * model2 + (2 - 1) * 4
+    log(f"[chaos] faulted n={n} ({CHAOS_PLAN}): converged "
+        f"{f0['converged']}, status {f0['status']}, {f0['iters']} iterations"
+        f" (fault-free {clean['iters']}), restarts {f0['restarts']}, p_final "
+        f"{f0['p_final']}; lost at {lost}; events "
+        + "; ".join(f"{e['kind']}@{e['segment']} p {e['p_from']}->"
+                    f"{e['p_to']} lost {e['iters_lost']} recover "
+                    f"{e['recover_s']:.3f} s" for e in f0["events"])
+        + f"; straggler flags {f0['flags']}; repartition+rebuild "
+        f"{[round(v, 3) for v in f0['remesh_s']]} s, restore "
+        f"{[round(v, 3) for v in f0['restore_s']]} s; u vs fault-free "
+        f"{u_rel:.3e}; {f0['seconds']:.2f} s; max_memory_allocated "
+        f"{max(res['faulted'].get('max_memory_allocated', 0) for res in ranks)}")
+    log(f"[chaos] after the remesh, per segment at p = 2: received bytes "
+        f"{[s['recv_bytes'] for s in after]} (model {CHAOS_EVERY} x "
+        f"{model2} + the ||b|| psum = {seg_model2}), halo_pack launches "
+        f"{[s['launches']['halo_pack'] for s in after]}")
+    require(f0["converged"] and f0["status"] == 0 and
+            f0["restarts"] == 2 and f0["p_final"] == 2,
+            f"faulted run: converged {f0['converged']}, status "
+            f"{f0['status']}, restarts {f0['restarts']}, p_final "
+            f"{f0['p_final']}")
+    require(lost == [None, None, 3, 3], f"ranks lost at {lost}")
+    kinds = [e["kind"] for e in f0["events"]]
+    require(kinds.count("device-loss") == 1 and
+            kinds.count("corruption") == 1 and
+            set(kinds) <= {"device-loss", "corruption", "straggler"} and
+            all(e["iters_lost"] == 0 for e in f0["events"]
+                if e["kind"] == "straggler") and
+            ev["device-loss"]["p_from"] == 4 and
+            ev["device-loss"]["p_to"] == 2 and
+            ev["device-loss"]["iters_lost"] == 0 and
+            ev["corruption"]["iters_lost"] == CHAOS_EVERY and
+            8 in f0["flags"],
+            f"faulted run events {f0['events']}")
+    require(abs(f0["iters"] - clean["iters"]) <= CHAOS_ITER_SLACK,
+            f"faulted run {f0['iters']} iterations, fault-free "
+            f"{clean['iters']}")
+    require(bool(torch.isfinite(u_fault).all()) and u_rel <= CHAOS_U_TOL,
+            f"faulted u vs fault-free {u_rel:.3e}")
+    require(bool(after) and all(s["recv_bytes"] == seg_model2
+                                for s in after),
+            f"p = 2 segment bytes {[s['recv_bytes'] for s in after]}, model "
+            f"{seg_model2}")
+    require(all(s["launches"]["halo_pack"] > 0 for s in after),
+            "halo_pack was not launched after the remesh")
+
+    cc, mono = r0["cut_clean"], r0["cut_monolithic"]
+    u_cc = torch.cat([res["cut_clean"]["u"] for res in ranks])
+    u_mono = torch.cat([res["cut_monolithic"]["u"] for res in ranks])
+    bf = r0["cut_bf16"]
+    log(f"[chaos] cut n={cut_n}, tol {CHAOS_CUT_TOL:g}: elastic "
+        f"{cc['iters']} iterations (restarts {cc['restarts']}, status "
+        f"{cc['status']}, {cc['seconds']:.2f} s), monolithic "
+        f"{mono['iters']} (status {mono['status']}); u bitwise equal "
+        f"{torch.equal(u_cc, u_mono.reshape(u_cc.shape))}; true relres per "
+        f"segment {[f'{v:.2e}' for v in cc['true']]}")
+    log(f"[chaos] bf16 escalation drill n={cut_n} (halo-plan-bf16, NaN at "
+        f"segment 1, ckpt_every {CHAOS_CUT_EVERY}): converged "
+        f"{bf['converged']}, status {bf['status']}, {bf['iters']} "
+        f"iterations, restarts {bf['restarts']}, comm_final "
+        f"{bf['comm_final']}, elastic/fp32-comm {bf['fp32_comm']}, "
+        f"{bf['seconds']:.2f} s")
+    require(cc["converged"] and cc["restarts"] == 0 and
+            cc["iters"] == mono["iters"] and
+            torch.equal(u_cc, u_mono.reshape(u_cc.shape)),
+            f"cut elastic {cc['iters']} iterations vs monolithic "
+            f"{mono['iters']}")
+    require(bf["converged"] and bf["status"] == 0 and
+            bf["comm_final"] == DSOLVE_MODE and bf["restarts"] == 1 and
+            all(res["cut_bf16"]["fp32_comm"] == 1 for res in ranks),
+            f"bf16 drill: {bf['comm_final']}, counter {bf['fp32_comm']}")
+
+    launches = {k: sum(res["launches"][k] for res in ranks)
+                for k in r0["launches"]}
+    log(f"[chaos] launches over the chaos path (all ranks): {launches}")
+    require(launches["halo_pack"] > 0, "halo_pack was not launched on the "
+            "chaos path")
+    t_phase = time.perf_counter() - t_phase
+    log(f"[chaos] phase took {t_phase:.1f} s (partitions and the n = "
+        f"{cut_n} build {t_build:.1f} s, ranks {t_ranks:.1f} s)")
+    return dict(
+        tripwire_probe=dict(probe, fires=fires, floor=plateau_floor),
+        clean=dict(iters=clean["iters"], want=want,
+                   seconds=clean["seconds"],
+                   ckpt_save_s=clean["ckpt_save_s"],
+                   ckpt_overhead_pct=clean["ckpt_overhead_pct"]),
+        faulted=dict(iters=f0["iters"], restarts=f0["restarts"],
+                     p_final=f0["p_final"], events=f0["events"],
+                     flags=f0["flags"], remesh_s=f0["remesh_s"],
+                     restore_s=f0["restore_s"], u_rel=u_rel,
+                     seconds=f0["seconds"],
+                     p2_segment_bytes=[s["recv_bytes"] for s in after],
+                     p2_model=seg_model2),
+        cut=dict(iters=cc["iters"], monolithic_iters=mono["iters"],
+                 bf16_iters=bf["iters"], bf16_comm_final=bf["comm_final"]),
+        launches=launches, phase_s=t_phase)
 
 
 # ---------------------------------------------------------------------------
@@ -2834,6 +3227,408 @@ def guard_phase(torch, solve_iters: int, device: str = "cuda",
     return out
 
 
+# ---------------------------------------------------------------------------
+# serve phase: the solver service on the paper's 2D set (repro_torch.serving)
+# ---------------------------------------------------------------------------
+
+SERVE_COMPRESS_TOL = 1e-5      # key A: the example's key_comp
+SERVE_LOOSE_TOL = 1e-4         # key A loosened: the degraded="loose" entry
+# the requests' tolerance: at N = 2^20 float32 CG's recomputed residual
+# stalls at 2-4e-4 while the recurrence goes on down (the calibration's
+# unrestarted line), so the reference's 1e-6 is out of reach of the
+# answers; at 1e-4 the 10 x tol recompute check holds with room
+SERVE_TOL = 1e-4
+SERVE_REQUESTS = 32
+SERVE_SEED = 1
+SERVE_PANEL = 16               # coupling_mv's warp16 route
+# iterations per dispatch: restarting CG every 25 iterations (the
+# reference's default) takes 3-5x the iterations of CG(100) here (the
+# calibration's restart line), which stays within 1.5x of unrestarted CG
+SERVE_RESTART = 100
+SERVE_MAX_SEGMENTS = 30        # a request's budget: 3,000 iterations
+SERVE_DRILL_COST = 0.02        # virtual seconds per dispatch in the drills
+SERVE_DRILL_PLAN = dict(device_loss_at={1: "device lost"}, nan_at={3},
+                        straggle_at={5: 0.5})
+SERVE_RECOMPUTE_TOL = 10 * SERVE_TOL   # recomputed with the plain HGEMV
+SERVE_THREADS = 4
+SERVE_PER_THREAD = 8
+
+
+def _serve_recompute(torch, shape, data, bs: dict, done: dict,
+                     chunk: int = 32) -> dict:
+    """``||b - (x + A x)|| / ||b||`` of every completion in ``done``
+    (rid -> Completion with ``x``) against its ``bs[rid]``, the HGEMV on
+    the plain backend, ``chunk`` columns at a time."""
+    from repro_torch.core.matvec import h2_matvec
+    rids = sorted(done)
+    out = {}
+    for i in range(0, len(rids), chunk):
+        part = rids[i:i + chunk]
+        x = torch.stack([done[r].x for r in part], dim=1)
+        b = torch.stack([torch.as_tensor(bs[r]).to(x.device) for r in part],
+                        dim=1)
+        r = b - (x + h2_matvec(shape, data, x, backend="torch"))
+        rel = (r.double().norm(dim=0) / b.double().norm(dim=0)).tolist()
+        out.update(zip(part, rel))
+    return out
+
+
+def _panel_solve(torch, seg, b, tol: float, max_dispatches: int) -> tuple:
+    """Dispatches of ``seg`` (a service's segment program) on the panel
+    ``b`` from zero until every column converges: (iterations per
+    column, dispatches, seconds, final x)."""
+    x = torch.zeros_like(b)
+    its = torch.zeros(b.shape[1], dtype=torch.long)
+    t0 = time.perf_counter()
+    for d in range(1, max_dispatches + 1):
+        res = seg(b, x, tol)
+        x, its = res.x, its + res.iters.long().cpu()
+        if bool((res.relres <= tol).all()):
+            break
+    return its.tolist(), d, time.perf_counter() - t0, x
+
+
+def serve_phase(torch, device: str = "cuda", log2n: int = 20) -> dict:
+    """The solver service (``repro_torch.serving``) on the paper's 2D set
+    at N = 2^log2n, serving ``(I + A) x = b`` (exponential kernel, l =
+    0.1): key A (``construct_h2`` at the main path's settings plus
+    ``compress(tol=1e-5)``) comes in by a cache miss (``operator``), and
+    every serve after hits it; a calibration panel gives the iterations
+    per request and the time per dispatch (beside restarts of 25 and no
+    restart, and the first dispatch with the Krylov guards on); a
+    benchmark on the wall clock at twice the panel's service rate; the
+    fault drill twice on a virtual clock (reproducible); the degraded
+    paths (per-column ``pcg`` on an open breaker, and ``degraded="loose"``
+    on key A loosened); the threaded front-end (4 submitters x 8
+    requests); every ``ok`` answer recomputed with the plain HGEMV; the
+    span trace exported.  The Krylov guards are off after the first
+    dispatch (see the log line).  ``device="cpu"`` rehearses it at a small
+    ``log2n``."""
+    import tempfile
+    import threading
+
+    import numpy as np
+    from repro_torch.core.clustering import regular_grid_points
+    from repro_torch.core.compression import compress
+    from repro_torch.core.construction import construct_h2
+    from repro_torch.core.kernels_fn import exponential_kernel
+    from repro_torch.core.matvec import h2_matvec
+    from repro_torch.obs.export import write_span_trace
+    from repro_torch.runtime.fault import CircuitBreaker, StragglerMonitor
+    from repro_torch.serving import (OperatorCache, OperatorKey,
+                                     PoissonLoad, QueueFull,
+                                     ServiceFaultPlan, SolverService,
+                                     ThreadedSolverService, geometry_digest)
+    from repro_torch.solvers import block_cg, krylov
+
+    t_phase = time.perf_counter()
+    on_card = device == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    backend = "cuda" if on_card else "torch"
+    side = 1 << (log2n // 2)
+    pts = regular_grid_points(side, 2)
+    n = side * side
+    key = OperatorKey(geometry=geometry_digest(pts),
+                      kernel=("exponential", 0.1), tol=SERVE_COMPRESS_TOL)
+    built = {}
+
+    def build():
+        sync()
+        t0 = time.perf_counter()
+        shape, data, _, _ = construct_h2(pts, exponential_kernel(0.1),
+                                         leaf_size=64, cheb_p=6, eta=0.9,
+                                         device=device)
+        sync()
+        built["construct_s"] = time.perf_counter() - t0
+        cshape, cdata = compress(shape, data, tol=SERVE_COMPRESS_TOL,
+                                 backend=backend)
+        sync()
+        built["build_s"] = time.perf_counter() - t0
+        built["ranks"] = (shape.ranks, cshape.ranks)
+        return cshape, cdata, {}
+
+    cache = OperatorCache(max_bytes=1 << 34)
+    common = dict(panel_width=SERVE_PANEL, restart_every=SERVE_RESTART,
+                  max_segments=SERVE_MAX_SEGMENTS, tol=SERVE_TOL,
+                  device=device, backend=backend)
+
+    def drill_service(plan=None, **kw):
+        opts = dict(dispatch_cost=SERVE_DRILL_COST, detect_delay=0.005,
+                    seed=0, straggler=StragglerMonitor(threshold=3.0,
+                                                       warmup=2),
+                    breaker=CircuitBreaker(failure_threshold=2,
+                                           cooldown=0.1))
+        opts.update(kw)
+        return SolverService(cache, fault_plan=plan, **opts, **common)
+
+    def load(rate, n_requests=SERVE_REQUESTS, seed=SERVE_SEED):
+        return PoissonLoad(n=n, rate=rate, n_requests=n_requests,
+                           tol=SERVE_TOL, seed=seed)
+
+    _mem_reset(torch, on_card)
+    start = tally_start()
+    captures0 = krylov.TRACE_COUNTS["block_cg"]
+    guards = krylov.guards_enabled()
+    try:
+        # 1. the cache miss, then the calibration panel
+        svc = SolverService(cache, **common)
+        entry = svc.operator(key, build)
+        shape, data = entry.shape, entry.data
+        log(f"[serve] key A built by a cache miss in {built['build_s']:.3f}"
+            f" s (construct {built['construct_s']:.3f} s; ranks "
+            f"{built['ranks'][0]} -> {built['ranks'][1]} at tol "
+            f"{SERVE_COMPRESS_TOL:g}), {entry.nbytes} bytes")
+        g = torch.Generator().manual_seed(SERVE_SEED)
+        bp = torch.randn(n, SERVE_PANEL, generator=g).to(device)
+        seg = svc._segment_fn(entry, SERVE_RESTART)
+        first = seg(bp, torch.zeros_like(bp), SERVE_TOL)
+        log(f"[serve] the first dispatch with the Krylov guards on: "
+            f"column statuses {sorted(set(first.status.tolist()))} "
+            f"(3 = stagnation: the restarted CG residual rises above its "
+            f"start within the window, relres up to "
+            f"{float(first.res_history.nan_to_num(0).max()):.2f}); the "
+            f"rest of the phase runs with the guards off")
+        krylov.set_guards_enabled(False)
+        seg = svc._segment_fn(entry, SERVE_RESTART)
+        seg(bp, torch.zeros_like(bp), SERVE_TOL)          # the capture
+        iters, disp, t_cal, xc = _panel_solve(torch, seg, bp, SERVE_TOL,
+                                              SERVE_MAX_SEGMENTS)
+        s_dispatch = t_cal / disp
+        ref = SolverService(cache, **dict(common, restart_every=25))
+        seg25 = ref._segment_fn(entry, 25)
+        seg25(bp, torch.zeros_like(bp), SERVE_TOL)        # the capture
+        it25, d25, t25, _ = _panel_solve(
+            torch, seg25, bp, SERVE_TOL,
+            SERVE_RESTART * SERVE_MAX_SEGMENTS // 25)
+        op = entry.solvers[("seg", SERVE_PANEL, SERVE_RESTART)]
+        sync()
+        t0 = time.perf_counter()
+        full = block_cg(op, bp, tol=SERVE_TOL,
+                        maxiter=SERVE_RESTART * SERVE_MAX_SEGMENTS)
+        sync()
+        t_full = time.perf_counter() - t0
+
+        def true(x):
+            r = bp - (x + h2_matvec(shape, data, x, backend="torch"))
+            return (r.double().norm(dim=0) / bp.double().norm(dim=0)).max()
+
+        mean_iters = statistics.mean(iters)
+        service_rate = SERVE_PANEL / (mean_iters / SERVE_RESTART *
+                                      s_dispatch)
+        rate = 2.0 * service_rate
+        log(f"[serve] calibration panel ({SERVE_PANEL} columns, tol "
+            f"{SERVE_TOL:g}): restart {SERVE_RESTART}: iterations "
+            f"{min(iters)}..{max(iters)} in {disp} dispatches, "
+            f"{s_dispatch * 1e3:.2f} ms a dispatch, recomputed relres "
+            f"{float(true(xc)):.3e}; restart 25 (the reference's default):"
+            f" {min(it25)}..{max(it25)} in {d25} dispatches, {t25:.2f} s; "
+            f"unrestarted: {min(full.iters.tolist())}.."
+            f"{max(full.iters.tolist())} iterations, {t_full:.2f} s, "
+            f"recomputed relres {float(true(full.x)):.3e}, recurrence "
+            f"peak {float(full.res_history.nan_to_num(0).max()):.2f}; "
+            f"service rate {service_rate:.3f} requests/s; load rate "
+            f"{rate:.3f}/s")
+        require(max(iters) < SERVE_RESTART * SERVE_MAX_SEGMENTS,
+                f"the calibration panel did not converge within the "
+                f"budget: {iters}")
+        del xc, full
+
+        # 2. benchmark: wall clock, a cache hit
+        reqs = {r.rid: r.b for r in load(rate).requests()}
+        t0 = time.perf_counter()
+        bench = SolverService(cache, **common).serve(load(rate).requests(),
+                                                     key, build)
+        t_bench = time.perf_counter() - t0
+        mb = bench.metrics
+        lat = bench.latencies()
+        thr = mb["completed"] / mb["makespan_s"] if mb["makespan_s"] \
+            else 0.0
+        log(f"[serve] benchmark (dispatch_cost None, rate {rate:.3f}/s): "
+            f"{mb['completed']} completed, p50 {bench.percentile(50):.3f} "
+            f"s, p99 {bench.percentile(99):.3f} s, throughput {thr:.3f} "
+            f"requests/s, mean occupancy {mb['mean_occupancy']:.2f} of "
+            f"{SERVE_PANEL}, {mb['dispatches']} dispatches, makespan "
+            f"{mb['makespan_s']:.3f} s ({t_bench:.1f} s); iterations per "
+            f"request {sorted(c.iters for c in bench.completions.values())}"
+            f"; cache {mb['cache']}")
+        require(mb["cache"]["misses"] == 1 and mb["cache"]["hits"] >= 1,
+                f"the benchmark's operator was not a cache hit: "
+                f"{mb['cache']}")
+        require(mb["completed"] == SERVE_REQUESTS and
+                lat.size == SERVE_REQUESTS,
+                f"benchmark completed {mb['completed']}, ok {lat.size}")
+
+        # 3. the drill, twice: virtual clock, the same load
+        drills = [drill_service(ServiceFaultPlan(
+            **{k: dict(v) if isinstance(v, dict) else set(v)
+               for k, v in SERVE_DRILL_PLAN.items()})).serve(
+            load(rate).requests(), key, build) for _ in range(2)]
+        md = drills[0].metrics
+        log(f"[serve] drill ({SERVE_DRILL_PLAN}, dispatch_cost "
+            f"{SERVE_DRILL_COST}): completed {md['completed']}, dispatches "
+            f"{md['dispatches']}, failures {md['dispatch_failures']}, "
+            f"retries {md['retries']}, hedges {md['hedges']} (won "
+            f"{md['hedge_wins']}), degraded {md['degraded_dispatches']}, "
+            f"breaker trips {md['breaker_trips']}, recoveries "
+            f"{md['breaker_recoveries']}, p50 "
+            f"{drills[0].percentile(50):.3f} s, p99 "
+            f"{drills[0].percentile(99):.3f} s (virtual)")
+        require(md["completed"] == SERVE_REQUESTS and
+                all(c.status == "ok"
+                    for c in drills[0].completions.values()),
+                "a drill request did not end ok")
+        require(md["dispatch_failures"] == 2 and md["retries"] == 2 and
+                md["hedges"] >= 1,
+                f"the drill's faults did not fire as planned: {md}")
+        c1 = drills[1].completions
+        same = all((a.status, a.iters, a.finished, a.via) ==
+                   (c1[r].status, c1[r].iters, c1[r].finished, c1[r].via)
+                   for r, a in drills[0].completions.items())
+        bitwise = all(torch.equal(a.x, c1[r].x)
+                      for r, a in drills[0].completions.items())
+        m1 = drills[1].metrics
+        same_m = all(md[k] == m1[k] for k in md if k != "cache")
+        log(f"[serve] drill rerun: the same completions {same}, x bitwise "
+            f"{bitwise}, the same metrics {same_m}")
+        require(same and same_m, "the drill is not reproducible")
+
+        # 4. the degraded paths: an open breaker serves single-RHS pcg on
+        # key A (the default), then key A loosened (degraded="loose")
+        loose_key = key.loosened(SERVE_LOOSE_TOL)
+        cache.get_or_build(loose_key, lambda: (*compress(
+            shape, data, tol=SERVE_LOOSE_TOL, backend=backend), {}))
+        degraded = {}
+        for mode, plan in (("pcg", {0: "dl", 1: "dl"}), ("loose", {0: "dl"})):
+            dreqs = load(1000.0, 4, SERVE_SEED + 1).requests()
+            drep = drill_service(ServiceFaultPlan(device_loss_at=plan),
+                                 degraded=mode,
+                                 degraded_tol=1e-3,
+                                 breaker=CircuitBreaker(
+                                     failure_threshold=len(plan),
+                                     cooldown=1.0)).serve(dreqs, key, build)
+            rel = _serve_recompute(torch, shape, data,
+                                   {r.rid: r.b for r in dreqs},
+                                   drep.completions)
+            degraded[mode] = (drep, rel)
+            ml = drep.metrics
+            log(f"[serve] degraded='{mode}'"
+                + (f" (key A loosened to {SERVE_LOOSE_TOL:g}, "
+                   f"{cache.peek(loose_key).nbytes} bytes)"
+                   if mode == "loose" else "")
+                + f": breaker trips {ml['breaker_trips']}, degraded "
+                f"dispatches {ml['degraded_dispatches']}; completions "
+                + ", ".join(f"{r}: {c.status} via {c.via} iters {c.iters} "
+                            f"(recomputed on key A {rel[r]:.2e})"
+                            for r, c in sorted(drep.completions.items())))
+            require(ml["degraded_dispatches"] >= 1 and
+                    all(c.via == "degraded" and c.status == "ok" and
+                        bool(torch.isfinite(c.x).all())
+                        for c in drep.completions.values()),
+                    f"degraded='{mode}' did not serve the open breaker")
+        require(cache.lookup_loosest(key, 1e-3) is cache.peek(loose_key),
+                "lookup_loosest did not find key A loosened")
+
+        # 5. the threaded front-end: 4 submitters x 8
+        ts_ = ThreadedSolverService(SolverService(cache, **common), key,
+                                    build)
+        rng = np.random.default_rng(SERVE_SEED + 2)
+        total = SERVE_THREADS * SERVE_PER_THREAD
+        tb = rng.standard_normal((total, n)).astype(np.float32)
+        rids, lock = {}, threading.Lock()
+
+        def submitter(tid):
+            for i in range(tid, total, SERVE_THREADS):
+                while True:
+                    try:
+                        rid = ts_.submit(tb[i])
+                        break
+                    except QueueFull as e:
+                        time.sleep(e.retry_after)
+                with lock:
+                    rids[i] = rid
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=submitter, args=(t,))
+                   for t in range(SERVE_THREADS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        tdone = {i: ts_.result(rid, timeout=600) for i, rid in rids.items()}
+        ts_.close(timeout=60)
+        t_thr = time.perf_counter() - t0
+        mt = ts_.metrics
+        log(f"[serve] threaded: {SERVE_THREADS} submitters x "
+            f"{SERVE_PER_THREAD}: {mt} in {t_thr:.1f} s")
+        require(len(set(rids.values())) == total and
+                mt["submitted"] == total and mt["completed"] == total and
+                mt["duplicates"] == 0 and mt["timeouts"] == 0 and
+                all(c.status == "ok" for c in tdone.values()),
+                f"threaded requests lost, duplicated or failed: {mt}")
+
+        # every ok answer, recomputed with the plain HGEMV
+        checks = {"benchmark": (reqs, bench.completions)}
+        for i, rep in enumerate(drills):
+            checks[f"drill{i}"] = (reqs, rep.completions)
+        checks["threaded"] = ({i: tb[i] for i in tdone}, tdone)
+        worst = {}
+        for what, (bs, done) in checks.items():
+            ok = {r: c for r, c in done.items() if c.status == "ok"}
+            rel = _serve_recompute(torch, shape, data, bs, ok)
+            worst[what] = max(rel.values())
+            marked = sum(c.via == "degraded" for c in done.values())
+            log(f"[serve] {what}: {len(ok)} ok answers, recomputed "
+                f"||b - (x + A x)|| / ||b|| max {worst[what]:.3e}, median "
+                f"{statistics.median(rel.values()):.3e} (tol "
+                f"{SERVE_RECOMPUTE_TOL:g}); {marked} marked degraded")
+        worst["degraded_pcg"] = max(degraded["pcg"][1].values())
+        require(all(v <= SERVE_RECOMPUTE_TOL for v in worst.values()),
+                f"recomputed residuals {worst}")
+    finally:
+        krylov.set_guards_enabled(guards)
+
+    # the span trace
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/serve_trace.json"
+        write_span_trace(path, bench.spans + drills[0].spans)
+        with open(path) as f:
+            doc = json.load(f)
+    names = {e["name"] for e in doc["traceEvents"] if e["ph"] == "X"}
+    log(f"[serve] span trace: {len(doc['traceEvents'])} events, names "
+        f"{sorted(names)}")
+    require({"serve/operator", "serve/dispatch"} <= names,
+            f"span trace names {names}")
+    sync()
+    launches, routes, _ = launches_that_ran(start)
+    captures = krylov.TRACE_COUNTS["block_cg"] - captures0
+    log(f"[serve] launches (graph replays included): {launches}; routes "
+        f"{routes}; block_cg captures {captures}; max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() if on_card else 0}")
+    require(launches["coupling_mv"] > 0 and launches["batched_gemm"] > 0 and
+            launches["batched_qr"] > 0 and launches["batched_svd"] > 0,
+            f"a kernel was not launched on the serve path: {launches}")
+    require(routes["coupling_mv"].get("warp16", 0) > 0 and
+            routes["coupling_mv"].get("warp1", 0) > 0,
+            f"coupling_mv routes on the serve path {routes['coupling_mv']}")
+    t_phase = time.perf_counter() - t_phase
+    log(f"[serve] phase took {t_phase:.1f} s")
+    return dict(
+        build_s=built["build_s"], operator_bytes=entry.nbytes,
+        iters_per_request=sorted(c.iters
+                                 for c in bench.completions.values()),
+        calibration=dict(iters=iters, dispatches=disp,
+                         restart25_iters=it25, restart25_dispatches=d25),
+        dispatch_ms=s_dispatch * 1e3, service_rate=service_rate, rate=rate,
+        p50_s=bench.percentile(50), p99_s=bench.percentile(99),
+        throughput=thr, mean_occupancy=mb["mean_occupancy"],
+        dispatches=mb["dispatches"], cache=mb["cache"],
+        drill={k: md[k] for k in ("dispatches", "dispatch_failures",
+                                  "retries", "hedges", "degraded_dispatches",
+                                  "breaker_trips", "breaker_recoveries")},
+        drill_bitwise=bitwise, recomputed_max=worst, threaded=mt,
+        captures=captures, launches=launches, phase_s=t_phase)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--log2n", type=int, default=20,
@@ -2923,6 +3718,11 @@ def main() -> int:
     dsolve = dsolve_phase(torch, keep)
     for name, n in dsolve["launches"].items():
         log(f"[kernels] {name}: {n} launches on the distributed solve path")
+    chaos = chaos_phase(torch, keep)
+    for name, n in chaos["launches"].items():
+        log(f"[kernels] {name}: {n} launches on the chaos path")
+    for name in ("dsolve_history", "dsolve_u", "dsolve_relres"):
+        del keep[name]
     sketch = sketch_phase(torch, timer, keep)
     solve_iters = keep["iters"]
     del keep
@@ -2940,6 +3740,9 @@ def main() -> int:
         require(guard["launches"][name] > 0,
                 f"{name} was not launched by the certified constructions and "
                 f"guarded solves")
+    serve = serve_phase(torch)
+    for name, n in serve["launches"].items():
+        log(f"[kernels] {name}: {n} launches on the serve path")
     kernels = []
     for name in KERNELS:
         r = results[name]
@@ -2949,7 +3752,8 @@ def main() -> int:
             replaces=REPLACES[name],
             launches=(main["launches"][name] + dist["launches"][name] +
                       solve["launches"][name] + dsolve["launches"][name] +
-                      sketch["launches"][name] + guard_launches[name]),
+                      sketch["launches"][name] + guard_launches[name] +
+                      chaos["launches"][name] + serve["launches"][name]),
             max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"]))
@@ -2978,6 +3782,10 @@ def main() -> int:
     log(json.dumps({"main_path": summary, "distributed": dsummary,
                     "solve": ssummary, "distributed_solve": dsolve,
                     "sketch": ksummary, "guard": gsummary,
+                    "chaos": {k: v for k, v in chaos.items()
+                              if k != "launches"},
+                    "serve": {k: v for k, v in serve.items()
+                              if k != "launches"},
                     "kernel_detail": detail, "card": smi}))
     log(smi)
     log(json.dumps({"kernels": kernels}))

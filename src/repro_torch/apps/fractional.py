@@ -31,19 +31,31 @@ one all-to-all and smooths the V-cycle on deep halos;
 ``dist_solve_comm_bytes`` models the bytes a rank receives per iteration.
 
 ``solve_with_guards`` runs ``solve`` through the guard escalation ladder
-(``repro_torch.guard``).  The elastic solve is not ported yet (ROADMAP
-Queue 1 item 7).
+(``repro_torch.guard``).
+
+Elastic (DESIGN.md §10; ``make_dist_solve_segment``,
+``solve_elastic_local``, ``solve_distributed_elastic``): the distributed
+PCG in checkpointed segments over a ``Comm``, one process per rank.
+Every control decision comes from replicated values (psum'd scalars, the
+shared checkpoint directory after a barrier), so no rank branches alone.
+A scheduled loss to ``p'`` ranks makes every world rank call
+``torch.distributed.new_group(range(p'))`` in schedule order; ranks
+``>= p'`` play the lost devices (they make the later losses' group calls
+too and return a record of the segment they were lost at), and the
+survivors re-shard their stacked copy of the operator with
+``core.repartition.repartition_h2`` and restore the last checkpoint.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.core.comm import Comm
 from repro_torch.core.compression import compress
 from repro_torch.core.construction import construct_h2
@@ -56,10 +68,18 @@ from repro_torch.core.halo import (build_transpose_plan, transpose_a2a,
 from repro_torch.core.kernels_fn import (diffusivity_2d, fractional_kernel_2d,
                                          fractional_kernel_2d_positive)
 from repro_torch.core.matvec import h2_matvec
-from repro_torch.guard.escalate import fp64_scalars, run_with_guards
+from repro_torch.core.repartition import repartition_h2
+from repro_torch.guard.escalate import (GUARD_COUNTERS, fp64_scalars,
+                                        run_with_guards)
 from repro_torch.guard.status import worst_status
+from repro_torch.kernels import ops as kops
 from repro_torch.obs.trace import phase
+from repro_torch.runtime.chaos import ChaosPlan, ChaosReport, FaultEvent
+from repro_torch.runtime.fault import (StepFailure, StragglerMonitor,
+                                       run_with_restarts)
 from repro_torch.solvers import graphs
+from repro_torch.solvers.krylov import PCGState, _norm, pcg_init, \
+    pcg_segment
 from repro_torch.solvers.krylov import gmres as _gmres
 from repro_torch.solvers.krylov import pcg as _pcg
 from repro_torch.solvers.mg import (_apply_op as _mg_apply_op,
@@ -371,7 +391,7 @@ def solve_with_guards(n: int, beta: float = 0.75, tol: float = 1e-8,
 # ----------------------------------------------------------------------
 
 def build_dist_problem(prob: Dict, p: int, n_cycles: int = 2, nu: int = 3,
-                       omega: float = 0.7, device="cuda"):
+                       omega: float = 0.7, device="cuda", dist_source=None):
     """Partition the fractional operator for ``p`` block rows on
     ``device``.
 
@@ -381,10 +401,22 @@ def build_dist_problem(prob: Dict, p: int, n_cycles: int = 2, nu: int = 3,
     the solver state: ``perm``/``unperm`` and, for ``p > 1``, the
     all-to-all plans of both transpositions.  The operator's local part
     ``D + gamma*C`` reuses the V-cycle's level-0 stencil arrays.
+
+    ``dist_source``: optional ``(dshape_old, ddata_old)`` of an existing
+    stacked partition -- the elastic remesh path re-shards it via
+    ``core.repartition.repartition_h2`` instead of partitioning the
+    single-device operator afresh (``prob`` then needs only the grid
+    arrays ``kappa``, ``d_diag``, ``perm``, ``unperm``, ``gamma``, ``h``,
+    ``n``).  A source already at ``p`` ranks is used as it is (re-sharding
+    it would reproduce it bit for bit).
     """
     n = prob["n"]
-    dshape, ddata = partition_h2(prob["shape"], prob["data"], p,
-                                 device=device)
+    if dist_source is not None:
+        dshape, ddata = dist_source if dist_source[0].p == p else \
+            repartition_h2(dist_source[0], dist_source[1], p, device=device)
+    else:
+        dshape, ddata = partition_h2(prob["shape"], prob["data"], p,
+                                     device=device)
     mg, mga = build_grid_mg(prob["kappa"], prob["d_diag"].reshape(n, n),
                             prob["gamma"], prob["h"], n, p=p, nu=nu,
                             omega=omega, n_cycles=n_cycles, device=device)
@@ -603,6 +635,385 @@ def solve_distributed(n: int, comm: Comm, beta: float = 0.75,
             "prob": prob, "parts": parts,
             "recv_bytes": comm.recv_bytes - before,
             "solve_s": time.perf_counter() - t0}
+
+
+# ----------------------------------------------------------------------
+# elastic fault-tolerant solve (DESIGN.md §10): segmented PCG with
+# checkpointed state, shrink-remesh recovery, and a residual tripwire
+# ----------------------------------------------------------------------
+
+def make_dist_solve_segment(prob: Dict, comm: Comm, mode: str = "halo-plan",
+                            tol: float = 1e-8, steps: int = 10,
+                            maxiter: int = 200, use_precond: bool = True,
+                            n_cycles: int = 2, nu: int = 3,
+                            omega: float = 0.7, dist_source=None,
+                            schedule: str = "auto", backend: str = "cuda",
+                            fused: Optional[bool] = None,
+                            device="cuda") -> Dict:
+    """Segmented (checkpointable) variant of ``make_dist_solve``, run by
+    every rank of ``comm``.
+
+    Returns this rank's four callables of the elastic solve --
+    ``init(b) -> PCGState``, ``segment(b, state) -> PCGState`` (at most
+    ``steps`` iterations, the periodic-exit checkpoint boundary),
+    ``residual(b, state) -> (true_relres, rec_relres)`` (the recomputed
+    ``||b - A x|| / ||b||`` silent-corruption tripwire, 0-d tensors equal
+    on every rank) and ``rebaseline(b, state)`` (a fresh ``r = b - A x``
+    from the iterate, keeping ``k``) -- all driving the exact ``pcg``
+    recurrence, so total iteration counts match the monolithic solve;
+    ``b`` and the state's vectors are the rank's grid-order strips.  Also
+    ``dshape``, ``mg``, ``args`` (the rank's views), ``stacked`` (the
+    whole stacked partition ``(dshape, ddata)``, the next remesh's
+    source), ``fused`` and ``tcaps``.  ``dist_source`` re-shards an
+    existing stacked partition (``build_dist_problem``).
+    """
+    n, h = prob["n"], prob["h"]
+    dshape, mg, stacked = build_dist_problem(
+        prob, comm.p, n_cycles=n_cycles, nu=nu, omega=omega, device=device,
+        dist_source=dist_source)
+    args = local_args(dshape, mg, stacked, comm.rank)
+    parts = make_dist_solve_local(
+        dshape, mg, args, comm, n, h, mode=mode, tol=tol, maxiter=maxiter,
+        use_precond=use_precond, schedule=schedule, backend=backend,
+        fused=fused)
+    apply_a, pre = parts["apply_a"], parts["precond"]
+
+    def init(b: torch.Tensor) -> PCGState:
+        return pcg_init(apply_a, b, pre, comm=comm)
+
+    def segment(b: torch.Tensor, state: PCGState) -> PCGState:
+        return pcg_segment(apply_a, b, state, pre, tol=tol, steps=steps,
+                           maxiter=maxiter, comm=comm)
+
+    def residual(b: torch.Tensor, state: PCGState):
+        bn = _norm(b, comm=comm)
+        bn_safe = torch.where(bn > 0, bn, 1.0)
+        true = _norm(b - apply_a(state.x), comm=comm)
+        return true / bn_safe, state.res / bn_safe
+
+    def rebaseline(b: torch.Tensor, state: PCGState) -> PCGState:
+        # re-anchor the recurrence on the (possibly rebuilt) operator:
+        # fresh r = b - A x from the checkpointed iterate, keeping the
+        # iteration count.  Needed after a precision escalation -- the
+        # carried r/p/rz of a bf16-payload segment are inconsistent with
+        # the fp32 rebuild at the old payload's accuracy level, which
+        # would re-fire the corruption tripwire forever.
+        st = pcg_init(apply_a, b, pre, x0=state.x, comm=comm)
+        return dataclasses.replace(st, k=state.k)
+
+    return {"init": init, "segment": segment, "residual": residual,
+            "rebaseline": rebaseline, "dshape": dshape, "mg": mg,
+            "args": args, "stacked": (dshape, stacked[0]),
+            "fused": parts["fused"], "tcaps": parts["tcaps"]}
+
+
+def _loss_schedule(plan: ChaosPlan, p: int) -> List[Tuple[int, int]]:
+    """The plan's losses in segment order, each shrinking the group to a
+    smaller power of two (the port re-shards onto surviving ranks only)."""
+    out, cur = [], p
+    for seg in sorted(plan.device_loss_at):
+        p_new = int(plan.device_loss_at[seg])
+        if p_new < 1 or p_new >= cur or p_new & (p_new - 1):
+            raise ValueError(f"device loss at segment {seg}: {cur} -> "
+                             f"{p_new} ranks is not a shrink to a power "
+                             f"of two")
+        out.append((seg, p_new))
+        cur = p_new
+    return out
+
+
+def solve_elastic_local(prob: Dict, comm: Comm, dist_source,
+                        tol: float = 1e-8, maxiter: int = 200,
+                        mode: str = "halo-plan", use_precond: bool = True,
+                        ckpt_dir: Optional[str] = None, ckpt_every: int = 10,
+                        max_restarts: int = 5,
+                        chaos: Optional[ChaosPlan] = None,
+                        monitor: Optional[StragglerMonitor] = None,
+                        ckpt_block: bool = True, schedule: str = "auto",
+                        backend: str = "cuda", fused: Optional[bool] = None,
+                        device="cuda") -> Dict:
+    """One rank's elastic solve (``solve_distributed_elastic``'s body) on
+    the stacked partition ``dist_source = (dshape, ddata)`` of the
+    operator at ``comm.p`` ranks; ``prob`` needs only the grid arrays
+    (``build_dist_problem``).  ``comm`` must span the whole world: a
+    device loss builds the survivors' groups with
+    ``torch.distributed.new_group``.
+
+    Returns, on a survivor, the reference's dict -- ``u`` (this rank's
+    ``[n / p_final, n]`` strip), ``iters``, ``relres``, ``converged``,
+    ``status``, ``history`` (the committed segments' recurrence relres),
+    ``p_final``, ``comm_final``, ``report`` (``ChaosReport``), ``parts``,
+    ``restarts`` -- plus ``true_history`` (the tripwire's recomputed
+    relres beside ``history``), ``segments`` (per segment run: its index,
+    ``p``, ``k`` after it, wall seconds, bytes this rank received and
+    kernel launches during it), ``remesh_s``/``restore_s`` (seconds per
+    remesh and per restore) and ``lost_at`` None.  A rank the schedule
+    drops returns ``{"lost_at": segment, "p_final": ...}`` after making
+    the later losses' group calls.
+    """
+    import torch.distributed as tdist
+
+    n = prob["n"]
+    dev = torch.device(device)
+    plan = chaos if chaos is not None else ChaosPlan.empty()
+    losses = _loss_schedule(plan, comm.p)
+    groups_made = [0]
+    report = ChaosReport()
+    mon = monitor if monitor is not None else StragglerMonitor()
+    mgr = CheckpointManager(ckpt_dir, keep=3) if ckpt_dir else None
+    ctx: Dict = {"mode": mode, "comm": comm}
+    extra_log: Dict[str, List] = {"segments": [], "remesh_s": [],
+                                  "restore_s": [], "true": []}
+
+    def make_groups(upto: int) -> Optional[object]:
+        """Every world rank's ``new_group`` calls of losses
+        ``groups_made .. upto - 1``, in schedule order; returns the last."""
+        g = None
+        for _, p_new in losses[groups_made[0]:upto]:
+            g = tdist.new_group(list(range(p_new)))
+        groups_made[0] = max(groups_made[0], upto)
+        return g
+
+    def build_ctx(source):
+        c = ctx["comm"]
+        parts = make_dist_solve_segment(
+            prob, c, mode=ctx["mode"], tol=tol, steps=ckpt_every,
+            maxiter=maxiter, use_precond=use_precond, dist_source=source,
+            schedule=schedule, backend=backend, fused=fused, device=device)
+        rows = n // c.p
+        b = torch.ones((rows * n,), dtype=torch.float32, device=dev) * \
+            prob["h"] ** 2
+        # the convergence threshold as the segment computes it, on this
+        # group (every rank reads the same bits)
+        b_norm = _norm(b, comm=c)
+        ctx.update(parts=parts, p=c.p, b=b, b_norm=float(b_norm),
+                   thr=torch.as_tensor(tol, dtype=b.dtype, device=dev) *
+                   b_norm)
+
+    build_ctx(dist_source)
+    del dist_source                       # the stacked source lives in ctx
+    state = ctx["parts"]["init"](ctx["b"])
+    total_segments = -(-int(maxiter) // int(ckpt_every))
+    flags = {"converged": False, "lost_at": None}
+    pending: Dict = {}
+    history: List[float] = []
+
+    def save(seg: int, st: PCGState) -> None:
+        """Rank 0 writes one global state: the x, r, p strips gathered
+        in rank (= grid row) order, the scalars replicated."""
+        c = ctx["comm"]
+        g = c.all_gather(torch.stack([st.x, st.r, st.p], dim=1))
+        if c.rank == 0:
+            glob = PCGState(k=st.k, x=g[:, 0], r=g[:, 1], p=g[:, 2],
+                            rz=st.rz, res=st.res, status=st.status)
+            mgr.save(seg + 1, glob,
+                     extra={"p": ctx["p"], "tol": tol, "comm": ctx["mode"],
+                            "n": n, "iters": int(st.k)},
+                     block=ckpt_block)
+
+    def step_fn(seg: int) -> None:
+        nonlocal state
+        if flags["converged"] or flags["lost_at"] is not None:
+            return
+        p_lost = plan.device_loss(seg)
+        if p_lost is not None:
+            pending.update(kind="device-loss", segment=seg, p_to=p_lost,
+                           k_done=int(state.k), t0=time.perf_counter())
+            raise StepFailure(f"device lost at segment {seg} "
+                              f"(p {ctx['p']} -> {p_lost})")
+        c = ctx["comm"]
+        _sync(dev)
+        recv0, launches0 = c.recv_bytes, kops.launch_counts()
+        t0 = time.perf_counter()
+        new_state = ctx["parts"]["segment"](ctx["b"], state)
+        _sync(dev)
+        wall = time.perf_counter() - t0
+        launches = {k: v - launches0[k]
+                    for k, v in kops.launch_counts().items()}
+        extra_log["segments"].append(dict(
+            segment=seg, p=ctx["p"], k=int(new_state.k), wall_s=wall,
+            recv_bytes=c.recv_bytes - recv0, launches=launches))
+        if plan.corrupts(seg):
+            # in-flight memory corruption: poison a copy of the fresh
+            # iterate AFTER the recurrence computed it -- invisible to the
+            # recurrence residual, visible to the recomputed one
+            new_state = dataclasses.replace(new_state,
+                                            x=new_state.x * float("nan"))
+        true_t, rec_t = ctx["parts"]["residual"](ctx["b"], new_state)
+        true_rr, rec_rr = float(true_t), float(rec_t)
+        wall += plan.straggle(seg)
+        report.seg_wall_s.append(wall)
+        report.segments_run += 1
+        if mon.record(seg, wall):
+            report.straggler_flags.append(seg)
+            report.events.append(FaultEvent(
+                kind="straggler", segment=seg, p_from=ctx["p"],
+                p_to=ctx["p"], iters_lost=0, recover_s=0.0))
+        st = worst_status(new_state.status)
+        if st != 0:
+            # the solver's own in-loop breakdown guard (NaN / indefinite
+            # carry) -- trips without waiting for the recomputed residual
+            pending.update(kind="breakdown", segment=seg, p_to=ctx["p"],
+                           k_done=int(new_state.k), t0=time.perf_counter())
+            raise StepFailure(
+                f"solver guard tripped at segment {seg} (status {st})")
+        if not np.isfinite(true_rr) or true_rr > 10.0 * rec_rr + 1e-5:
+            pending.update(kind="corruption", segment=seg, p_to=ctx["p"],
+                           k_done=int(new_state.k), t0=time.perf_counter())
+            raise StepFailure(
+                f"residual tripwire at segment {seg}: true relres "
+                f"{true_rr:.3e} vs recurrence {rec_rr:.3e}")
+        state = new_state
+        history.append(rec_rr)
+        extra_log["true"].append(true_rr)
+        if mgr is not None:
+            t0 = time.perf_counter()
+            save(seg, state)
+            report.ckpt_save_s.append(time.perf_counter() - t0)
+        if bool(state.res <= ctx["thr"]):
+            flags["converged"] = True
+
+    def restore() -> Tuple[PCGState, int]:
+        """Every rank's view of the newest complete checkpoint (rank 0
+        finishes its writes first; all meet at a barrier), sliced to this
+        rank's strip; the initial state when there is none."""
+        c = ctx["comm"]
+        if mgr is not None and c.rank == 0:
+            mgr.wait()
+        c.barrier()
+        step = mgr.latest_step() if mgr is not None else None
+        if step is None:
+            return ctx["parts"]["init"](ctx["b"]), 0
+        glob, man = mgr.restore(state, step=step, device=dev)
+        rows = glob.x.shape[0] // c.p
+        cut = slice(c.rank * rows, (c.rank + 1) * rows)
+        return dataclasses.replace(glob, x=glob.x[cut].contiguous(),
+                                   r=glob.r[cut].contiguous(),
+                                   p=glob.p[cut].contiguous()), \
+            int(man["step"])
+
+    def on_restart(at: int) -> int:
+        nonlocal state
+        kind = pending.get("kind", "unknown")
+        p_from = ctx["p"]
+        escalated = False
+        if kind == "device-loss":
+            p_new = pending["p_to"]
+            i = [s for s, _ in losses].index(pending["segment"])
+            group = make_groups(i + 1)
+            me = ctx["comm"].rank
+            if me >= p_new:
+                # this rank plays a lost device: it takes part in the
+                # later losses' group calls and leaves the solve
+                make_groups(len(losses))
+                flags["lost_at"] = pending["segment"]
+                ctx["p"] = p_new
+                pending.clear()
+                return total_segments
+            t0 = time.perf_counter()
+            source = ctx["parts"]["stacked"]
+            ctx["comm"] = Comm(group)
+            ctx.pop("parts")
+            build_ctx(source)
+            del source
+            _sync(dev)
+            extra_log["remesh_s"].append(time.perf_counter() - t0)
+        elif kind in ("corruption", "breakdown") and \
+                ctx["mode"].endswith("-bf16"):
+            # precision-escalation rung: a numerically-suspect restart on
+            # a bf16-payload exchange drops to full fp32 payloads before
+            # resuming from the checkpoint
+            ctx["mode"] = ctx["mode"][:-len("-bf16")]
+            GUARD_COUNTERS["elastic/fp32-comm"] += 1
+            build_ctx(ctx["parts"]["stacked"])
+            escalated = True
+        t0 = time.perf_counter()
+        state, resume = restore()
+        if escalated and resume > 0:
+            # the checkpointed recurrence was produced by the bf16
+            # exchange; re-anchor r/p/rz on the fp32 rebuild so the
+            # tripwire compares like against like from here on
+            state = ctx["parts"]["rebaseline"](ctx["b"], state)
+        _sync(dev)
+        extra_log["restore_s"].append(time.perf_counter() - t0)
+        k_res = int(state.k)
+        report.events.append(FaultEvent(
+            kind=kind, segment=pending.get("segment", at), p_from=p_from,
+            p_to=ctx["p"], iters_lost=max(0, pending.get("k_done", 0) - k_res),
+            recover_s=time.perf_counter() - pending.get("t0",
+                                                        time.perf_counter())))
+        pending.clear()
+        return resume
+
+    _, restarts = run_with_restarts(
+        step_fn, start_step=0, total_steps=total_segments,
+        max_restarts=max_restarts, on_restart=on_restart)
+    if flags["lost_at"] is not None:
+        return {"lost_at": flags["lost_at"], "p_final": ctx["p"]}
+    make_groups(len(losses))              # the losses that never fired
+    if mgr is not None and ctx["comm"].rank == 0:
+        mgr.wait()
+    report.restarts = restarts
+    bn_safe = ctx["b_norm"] if ctx["b_norm"] > 0 else 1.0
+    return {"u": state.x.reshape(n // ctx["p"], n), "iters": int(state.k),
+            "relres": float(state.res) / bn_safe,
+            "converged": bool(state.res <= ctx["thr"]),
+            "status": worst_status(state.status), "history": history,
+            "true_history": extra_log["true"], "prob": prob,
+            "p_final": ctx["p"], "comm_final": ctx["mode"],
+            "report": report, "parts": ctx["parts"], "restarts": restarts,
+            "segments": extra_log["segments"],
+            "remesh_s": extra_log["remesh_s"],
+            "restore_s": extra_log["restore_s"], "lost_at": None}
+
+
+def solve_distributed_elastic(n: int, comm: Comm, beta: float = 0.75,
+                              tol: float = 1e-8, h2_tol: float = 1e-6,
+                              maxiter: int = 200, mode: str = "halo-plan",
+                              use_precond: bool = True,
+                              construction: str = "cheb",
+                              ckpt_dir: Optional[str] = None,
+                              ckpt_every: int = 10, max_restarts: int = 5,
+                              chaos: Optional[ChaosPlan] = None,
+                              monitor: Optional[StragglerMonitor] = None,
+                              ckpt_block: bool = True,
+                              schedule: str = "auto",
+                              fused: Optional[bool] = None, device="cuda",
+                              backend: str = "cuda") -> Dict:
+    """Fault-tolerant distributed fractional solve (DESIGN.md §10), run by
+    every rank of the world group ``comm``: each builds the problem on
+    ``device`` (the same bits on every rank), partitions it for ``comm.p``
+    ranks and runs ``solve_elastic_local``.
+
+    The solve runs as segments of ``ckpt_every`` PCG iterations.  After
+    each segment rank 0 snapshots the global :class:`PCGState` through
+    ``CheckpointManager`` (when ``ckpt_dir`` is given, a directory every
+    rank sees) and every rank probes the recomputed true residual against
+    the recurrence residual -- a divergence or non-finite value means
+    silent state corruption, raised as ``StepFailure`` *without*
+    committing the poisoned state.  Recovery is orchestrated by
+    ``runtime.fault.run_with_restarts``: on a device loss the operator is
+    re-sharded onto the scheduled surviving ranks via ``repartition_h2``,
+    the latest *valid* checkpoint is restored and sliced to the new
+    strips, and the solve resumes from that segment; corrupted state
+    rolls back the same way on the unchanged group.  Stragglers (injected
+    via ``chaos`` or real) are flagged by the ``StragglerMonitor`` but
+    cost no iterations.  ``mode``, ``schedule``, ``fused`` and
+    ``backend`` are ``make_dist_solve``'s.
+    """
+    prob = FractionalProblem(n, beta=beta, h2_tol=h2_tol,
+                             construction=construction, device=device,
+                             backend=backend).build()
+    source = partition_h2(prob["shape"], prob["data"], comm.p,
+                          device=device)
+    grid = {k: v for k, v in prob.items() if k not in ("shape", "data")}
+    del prob
+    return solve_elastic_local(
+        grid, comm, source, tol=tol, maxiter=maxiter, mode=mode,
+        use_precond=use_precond, ckpt_dir=ckpt_dir, ckpt_every=ckpt_every,
+        max_restarts=max_restarts, chaos=chaos, monitor=monitor,
+        ckpt_block=ckpt_block, schedule=schedule, backend=backend,
+        fused=fused, device=device)
 
 
 def dist_solve_comm_bytes(dshape: DistH2Shape, mg, mode: str = "halo-plan",

@@ -1,1 +1,2 @@
-"""Observability for the PyTorch port (phase annotation only)."""
+"""Observability for the PyTorch port: phase annotation (``trace``) and
+Chrome-trace export (``export``)."""
