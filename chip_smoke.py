@@ -32,6 +32,12 @@ uncompressed one (8 probes, 5e-3), and ``drill_corrupt_operator`` in
 (``backend="cuda"``), each caught by ``validate_h2`` and by its
 certificate against the healthy HGEMV (the probes' nv = 8 takes
 ``coupling_mv``'s general route: logged, not required);
+then the first part of the observability checks (``[obs]``): the eager
+HGEMV's device operations and bits with tracing on and off
+(``obs.trace.set_enabled``), the ``cuda`` and ``torch`` HGEMVs timed by
+``obs.timers.interleaved_times`` with their ``median_ratio``, and the
+device's idle share over one eager HGEMV from a ``torch.profiler`` trace
+(written under ``build/``);
 then the distributed path: ``partition_h2`` of that operator over 4 ranks
 (``validate_dist_h2`` of it),
 and 4 spawned processes in a gloo group sharing the card (payloads staged
@@ -63,7 +69,14 @@ V-cycle, rank-order psums; eager), every rank held to the same
 iterations and status, the gathered u to the single-device one (1e-4),
 an iteration's received bytes to ``dist_solve_comm_bytes``, with one
 iteration split by phase, and the two-step schedule held to the fused
-one over 30 iterations; then the chaos path (``[chaos]``): the elastic
+one over 20 iterations; then the rest of ``[obs]``: the idle share over
+10 graph-replayed iterations of the n = 512 solve, and
+``obs.profile_solve.profile_rank`` of the ``[dsolve]`` problem over the
+same 4 ranks (halo-plan fused, allgather two-step: microseconds per phase
+by truncated-loop differencing, the coverage of a whole solve capped at
+10 iterations, every rank's counted bytes per phase equal to
+``phase_comm_model`` and per iteration to ``dist_solve_comm_bytes``);
+then the chaos path (``[chaos]``): the elastic
 solve (``solve_elastic_local``) over the same 4 ranks, each handed the
 whole stacked partition and the grid arrays: the reference's tripwire on
 the distributed solve's final state (the float32 plateau, required under
@@ -73,7 +86,7 @@ solve's iterations and recurrence), a faulted run (a loss to 2 ranks at
 segment 3, re-sharded by ``repartition_h2``; a NaN at segment 6 caught
 by the tripwire; a straggler at segment 8): restarts 2, 0 iterations
 lost to the loss and 10 to the NaN, u within 1e-3, each p = 2 segment's
-bytes equal to the model, ``halo_pack`` launched; then, cut to n = 128
+bytes equal to the model, ``halo_pack`` launched; then, cut to n = 64
 at tol 2e-5, the elastic run against the monolithic one (bitwise) and
 the bf16 escalation drill; then the sketch path (``[sketch]``): K of the
 §6.4 problem at n = 512 by ``construct_h2(method="sketch")``, split by
@@ -101,7 +114,15 @@ p99, throughput, occupancy, a cache hit), the fault drill twice
 (reproducible), both degraded paths (per-column ``pcg`` and
 ``degraded="loose"``), the threaded front-end (4 submitters x 8
 requests), every ``ok`` answer recomputed with the plain HGEMV (10 x the
-requests' tol 1e-4), and the span trace.
+requests' tol 1e-4), and the span trace; and last distributed serving
+(``[dserve]``): that operator partitioned over 4 gloo ranks, each running
+a ``SolverService(comm=...)`` in lockstep on the halo-plan key (8
+requests, panel 8, tol 1e-4, on the wall clock: each dispatch costs the
+slowest rank's wall), then, cut to N = 2^16, the local key in this
+process, the halo-plan and allgather keys and a NaN drill on the cached
+halo-plan resident; every answer recomputed with the plain HGEMV (10 x
+tol), the cut ones also against the local service's, every rank's
+metrics and dispatch log equal to rank 0's.
 Launch counts are reset just before each path and read just after (graph
 replays launch kernels without their wrappers: logged apart).
 Any failure raises; the last line is the device JSON only on success.
@@ -553,8 +574,10 @@ def kernel_phase(torch, timer, results: dict) -> None:
         max_abs_err=err, bound_ms=bnd, bound_by=by,
         ms=timer.ms(lambda: kbq.batched_qr(leaf)),
         general_ms=timer.ms(lambda: kbq.batched_qr(leaf, route="general")),
-        plain_ms=timer.ms(lambda: ref.batched_qr(leaf), reps=3),
-        library_ms=timer.ms(lambda: torch.linalg.qr(leaf), reps=3))
+        # ~1.4 s per call: one timed call each after one warmup
+        plain_ms=timer.ms(lambda: ref.batched_qr(leaf), reps=1, warmup=1),
+        library_ms=timer.ms(lambda: torch.linalg.qr(leaf), reps=1,
+                            warmup=1))
     wbytes = 4 * (wstack.numel() + 16384 * 36 * 36)
     wb, wby = bound_ms(wbytes, qr_flops(16384, 648, 36, False))
     log(f"[kernel] batched_qr_r weights stack [16384,648,36]: tall "
@@ -622,11 +645,11 @@ def kernel_phase(torch, timer, results: dict) -> None:
         general_ms=timer.ms(
             lambda: kbs.batched_svd(rl, want_vt=False, route="general"),
             reps=3),
-        # cuSOLVER takes ~15 s per call here: two timed calls each, warmed
+        # cuSOLVER takes ~15 s per call here: one timed call each, warmed
         # by svd_case's own call of the plain version
-        plain_ms=timer.ms(lambda: ref.batched_svd(rl), reps=2, warmup=0),
+        plain_ms=timer.ms(lambda: ref.batched_svd(rl), reps=1, warmup=0),
         library_ms=timer.ms(lambda: torch.linalg.svd(rl, full_matrices=False),
-                            reps=2, warmup=0))
+                            reps=1, warmup=0))
     # ---- halo_pack: edge cases here; timed at the distributed phase's
     # largest launch, once the partition exists (dist_phase) ----
     results["halo_pack"] = dict(max_abs_err=halo_pack_cases(torch, rnd))
@@ -2031,8 +2054,9 @@ DSOLVE_MODE = "halo-plan"
 # the two-step schedule (all_gather transpositions, per-level exchanges,
 # one-row V-cycle halos) is held to the fused one over this many
 # iterations from the same start instead of a whole solve, which would
-# take the phase past ~150 s at ~0.3-0.5 s an iteration (PERF.md §6)
-TWO_STEP_ITERS = 30
+# take the phase past ~150 s at ~0.3-0.5 s an iteration (PERF.md §6); 20
+# rather than 30 keeps the whole script within its time limit
+TWO_STEP_ITERS = 20
 # the two schedules' H^2 products may sum in other orders; over
 # TWO_STEP_ITERS iterations their iterates stay within the phase's
 # solution bound
@@ -2305,11 +2329,14 @@ CHAOS_STRAGGLER = dict(threshold=3.0, warmup=3)
 CHAOS_ITER_SLACK = 2
 CHAOS_U_TOL = 1e-3             # tol 1e-4 resolves u to about this
 CHAOS_MARGIN = 0.9             # plateau <= margin x the tripwire's floor
-CHAOS_CUT_N = 128              # the cut pieces: N = 16,384
+# the cut pieces: N = 4,096 (cut from n = 128 to keep the whole script
+# within its time limit)
+CHAOS_CUT_N = 64
 CHAOS_CUT_EVERY = 4            # the bf16 drill's checkpoint interval
 # the cut pieces' tolerance: the float32 plateau at n = 128 (9.1e-5 on the
 # CPU) is above the tripwire's floor at the reference's tol 1e-8 (1.0e-5)
-# as at n = 512; 2e-5 keeps the floor (2.1e-4) twice above it
+# as at n = 512; 2e-5 keeps the floor (2.1e-4) twice above it (n = 64's
+# plateau is lower)
 CHAOS_CUT_TOL = 2e-5
 
 
@@ -2317,7 +2344,7 @@ def _chaos_rank_work(rank: int, payload, on_card: bool, ckpt_root: str,
                      dsolve_u, dsolve_relres: float) -> dict:
     """The elastic solves on one rank of the world group: the tripwire on
     ``[dsolve]``'s final state, the fault-free and the faulted n = 512
-    runs, then the n = 128 pieces (the elastic solve against the
+    runs, then the n = 64 pieces (the elastic solve against the
     monolithic one at tol 1e-8, the bf16 escalation drill).  ``payload``:
     per n, the grid arrays and the stacked p = 4 partition (CUDA IPC).
     Returns host tensors and numbers."""
@@ -2406,7 +2433,7 @@ def _chaos_rank_work(rank: int, payload, on_card: bool, ckpt_root: str,
         comm.barrier()
     del ddata
 
-    # the cut pieces at n = 128, over the whole world again
+    # the cut pieces at n = 64, over the whole world again
     grid, dshape, ddata = payload["cut"]
     n = grid["n"]
     comm.barrier()
@@ -2465,7 +2492,7 @@ def chaos_phase(torch, keep: dict, device: str = "cuda",
     problem of ``[solve]`` partitioned in the parent and handed to every
     rank whole (CUDA IPC), fault-free and under ``CHAOS_PLAN`` (a loss to
     2 ranks at segment 3, a NaN at segment 6, a straggler at segment 8),
-    then the n = 128 cut pieces.  Holds the fault-free run to
+    then the n = 64 cut pieces.  Holds the fault-free run to
     ``[dsolve]``'s recurrence, the faulted run to the reference's drill
     outcomes, the bytes after the remesh to ``dist_solve_comm_bytes``.
     ``device="cpu"`` rehearses it without a card (``cut_n`` smaller; the
@@ -3288,7 +3315,8 @@ def _panel_solve(torch, seg, b, tol: float, max_dispatches: int) -> tuple:
     return its.tolist(), d, time.perf_counter() - t0, x
 
 
-def serve_phase(torch, device: str = "cuda", log2n: int = 20) -> dict:
+def serve_phase(torch, device: str = "cuda", log2n: int = 20,
+                keep: dict = None) -> dict:
     """The solver service (``repro_torch.serving``) on the paper's 2D set
     at N = 2^log2n, serving ``(I + A) x = b`` (exponential kernel, l =
     0.1): key A (``construct_h2`` at the main path's settings plus
@@ -3302,8 +3330,9 @@ def serve_phase(torch, device: str = "cuda", log2n: int = 20) -> dict:
     on key A loosened); the threaded front-end (4 submitters x 8
     requests); every ``ok`` answer recomputed with the plain HGEMV; the
     span trace exported.  The Krylov guards are off after the first
-    dispatch (see the log line).  ``device="cpu"`` rehearses it at a small
-    ``log2n``."""
+    dispatch (see the log line).  ``keep`` (optional) receives key A's
+    points and operator, which ``[dserve]`` partitions.  ``device="cpu"``
+    rehearses it at a small ``log2n``."""
     import tempfile
     import threading
 
@@ -3612,6 +3641,8 @@ def serve_phase(torch, device: str = "cuda", log2n: int = 20) -> dict:
             f"coupling_mv routes on the serve path {routes['coupling_mv']}")
     t_phase = time.perf_counter() - t_phase
     log(f"[serve] phase took {t_phase:.1f} s")
+    if keep is not None:
+        keep.update(serve_pts=pts, serve_shape=shape, serve_data=data)
     return dict(
         build_s=built["build_s"], operator_bytes=entry.nbytes,
         iters_per_request=sorted(c.iters
@@ -3627,6 +3658,467 @@ def serve_phase(torch, device: str = "cuda", log2n: int = 20) -> dict:
                                   "breaker_trips", "breaker_recoveries")},
         drill_bitwise=bitwise, recomputed_max=worst, threaded=mt,
         captures=captures, launches=launches, phase_s=t_phase)
+
+
+# ---------------------------------------------------------------------------
+# obs phase: trace neutrality, timers, the solve's phase profile and the
+# device's idle share
+# ---------------------------------------------------------------------------
+
+OBS_DIR = ROOT / "build"        # the Chrome traces of the idle shares
+OBS_REPS = 10                   # interleaved rounds of the two HGEMVs
+OBS_SOLVE_STEPS = 10            # graph-replayed [solve] iterations traced
+# the profile of the [dsolve] problem: each round times a whole solve
+# capped at one segment (10 iterations) and the 11 truncated loops of one
+# iteration each, in both comm modes; 3 rounds (and a warmup round) keep
+# the profile near a minute at ~0.2-0.5 s an eager iteration
+OBS_PROFILE = dict(modes=("halo-plan", "allgather"), tol=1e-8, maxiter=10,
+                   reps=3, loop_m=1)
+# device work in a profiler trace
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def device_idle_share(torch, fn, path, reps: int = 5) -> dict:
+    """The device's idle share over one call of ``fn()``: a
+    ``torch.profiler`` trace with CUDA activity; the window is the host
+    range of the call and its synchronize, the busy time the union of the
+    device's kernel, copy and set intervals inside it; idle share = 1 -
+    busy / window.  Tracing slows the host's enqueue (and the replay of
+    a graph's kernels), which widens the window, so the share is also
+    given against the call's untraced time (median of ``reps`` calls,
+    host clock, synchronized): ``idle_share_untraced`` = 1 - busy /
+    untraced.  Writes the Chrome trace to ``path``.  When the trace holds
+    no device activity, both shares are None (not measured)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    walls = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e6)
+    untraced = statistics.median(walls)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function("obs/idle-window"):
+            fn()
+            torch.cuda.synchronize()
+    path.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    win = [e for e in events if e.get("name") == "obs/idle-window"
+           and e.get("cat") == "user_annotation"]
+    require(len(win) == 1, f"{len(win)} idle windows in the trace")
+    w0 = float(win[0]["ts"])
+    w1 = w0 + float(win[0]["dur"])
+    spans = sorted((max(float(e["ts"]), w0),
+                    min(float(e["ts"]) + float(e.get("dur", 0)), w1))
+                   for e in events if e.get("ph") == "X"
+                   and e.get("cat") in DEVICE_CATS)
+    busy, end = 0.0, w0
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    share = 1.0 - busy / (w1 - w0) if spans else None
+    share_u = max(0.0, 1.0 - busy / untraced) if spans else None
+    return dict(window_us=w1 - w0, busy_us=busy, idle_share=share,
+                untraced_us=untraced, idle_share_untraced=share_u,
+                device_ops=len(spans), trace=str(path.relative_to(ROOT)))
+
+
+def obs_hgemv_phase(torch, state: dict, device: str = "cuda") -> dict:
+    """The first part of ``[obs]``, on the main path's operator (N = 2^20,
+    nv = 16): the eager HGEMV's device operations and bits with tracing on
+    and off (``obs.trace.set_enabled``), the ``cuda`` and ``torch`` HGEMVs
+    by ``obs.timers.interleaved_times`` with their ``median_ratio``, and
+    the device's idle share over one eager HGEMV (``device="cpu"``
+    rehearses the rest)."""
+    from repro_torch.core.matvec import h2_matvec
+    from repro_torch.obs import trace
+    from repro_torch.obs.timers import interleaved_times, median_ratio
+
+    t_phase = time.perf_counter()
+    start = tally_start()
+    shape, data, x = state["shape"], state["data"], state["x"]
+    fns = {b: (lambda b=b: h2_matvec(shape, data, x, backend=b))
+           for b in ("cuda", "torch")}
+    counts, outs = {}, {}
+    try:
+        for flag in (True, False):
+            trace.set_enabled(flag)
+            counts[flag] = device_ops(
+                torch, lambda v: h2_matvec(shape, data, v, backend="cuda"), x)
+            outs[flag] = fns["cuda"]()
+    finally:
+        trace.set_enabled(True)
+    bitwise = torch.equal(outs[True], outs[False])
+    log(f"[obs] neutrality, eager HGEMV N={shape.n} nv={x.shape[1]}: "
+        f"device operations with tracing on {counts[True]}, off "
+        f"{counts[False]}; results bitwise equal {bitwise}")
+    require(counts[True] == counts[False] and bitwise,
+            "tracing changed the HGEMV's device work or its result")
+    del outs
+    acc = interleaved_times(fns, reps=OBS_REPS, warmup=1)
+    med = {b: statistics.median(v) * 1e3 for b, v in acc.items()}
+    ratio = median_ratio(acc["torch"], acc["cuda"])
+    log(f"[obs] timers: interleaved_times over {OBS_REPS} rounds, host "
+        f"clock synchronized: HGEMV cuda {med['cuda']:.3f} ms, torch "
+        f"{med['torch']:.3f} ms (medians); median_ratio(torch, cuda) "
+        f"{ratio:.3f}")
+    idle = device_idle_share(torch, fns["cuda"],
+                             OBS_DIR / "obs_hgemv_trace.json") \
+        if device == "cuda" else None
+    log(f"[obs] idle share, one eager HGEMV: {idle}")
+    launches, _, _ = launches_that_ran(start)
+    t_phase = time.perf_counter() - t_phase
+    log(f"[obs] first part took {t_phase:.1f} s")
+    return dict(device_ops=counts[True], bitwise=bitwise, hgemv_ms=med,
+                torch_over_cuda=ratio, idle_hgemv=idle, launches=launches,
+                first_part_s=t_phase)
+
+
+def _obs_rank_work(rank: int, args, on_card: bool, dshape, mg, n: int,
+                   h: float) -> dict:
+    """One rank of the ``[obs]`` profile: ``profile_rank`` on its views of
+    the [dsolve] problem; returns its document and its launches."""
+    import torch
+    from repro_torch.core.comm import Comm
+    from repro_torch.kernels import ops
+    from repro_torch.obs.profile_solve import profile_rank
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    comm = Comm()
+    ops.reset_launch_counts()
+    doc = profile_rank(comm, dshape, mg, args, n, h, backend="cuda",
+                       **OBS_PROFILE)
+    return dict(doc=doc, launches=ops.launch_counts())
+
+
+def obs_phase(torch, keep: dict, device: str = "cuda") -> dict:
+    """The second part of ``[obs]``: the device's idle share over
+    ``OBS_SOLVE_STEPS`` graph-replayed iterations of the ``[solve]``
+    problem, then ``obs.profile_solve.profile_rank`` of the ``[dsolve]``
+    problem over ``DIST_P`` gloo ranks on the card (the partition
+    ``[dsolve]`` left, the halo-plan fused and the allgather two-step
+    schedules): per-phase microseconds per iteration, coverage, each
+    phase's counted bytes against ``phase_comm_model`` and the iteration's
+    against ``dist_solve_comm_bytes``, on every rank."""
+    from repro_torch.apps import fractional as pf
+    from repro_torch.obs.profile_solve import PHASE_ORDER
+    from repro_torch.solvers import krylov
+
+    t_phase = time.perf_counter()
+    on_card = device == "cuda"
+    start = tally_start()
+    prob = keep["prob"]
+    n, h = prob["n"], prob["h"]
+    out = {}
+    if on_card:
+        apply_a = pf.make_operator(prob, backend="cuda")
+        pre = pf.make_preconditioner(prob)
+        b = torch.ones((n * n,), dtype=torch.float32, device=device) * h * h
+        st = krylov.pcg_init(apply_a, b, pre)
+
+        def seg():
+            return krylov.pcg_segment(apply_a, b, st, pre,
+                                      steps=OBS_SOLVE_STEPS,
+                                      maxiter=10 * OBS_SOLVE_STEPS,
+                                      graph=True)
+        require(int(seg().k) == OBS_SOLVE_STEPS,
+                "the traced segment stopped early")      # the capture
+        out["idle_solve"] = device_idle_share(
+            torch, seg, OBS_DIR / "obs_solve_trace.json")
+        log(f"[obs] idle share, {OBS_SOLVE_STEPS} graph-replayed [solve] "
+            f"iterations (n={n}): {out['idle_solve']}")
+        del apply_a, pre, b, st
+    t0 = time.perf_counter()
+    dshape, mg, args = pf.build_dist_problem(
+        prob, DIST_P, device=device, dist_source=keep["dsolve_dist"])
+    ranks = run_ranks(torch, _obs_rank_work, (dshape, mg, n, h),
+                      [pf.local_args(dshape, mg, args, r)
+                       for r in range(DIST_P)], device)
+    t_ranks = time.perf_counter() - t0
+    del args
+    if on_card:
+        torch.cuda.ipc_collect()
+    doc = ranks[0]["doc"]
+    for mode, summ in doc["summary"].items():
+        us = {r["phase"]: r["us"] for r in doc["phases"]
+              if r["comm"] == mode}
+        log(f"[obs] profile {mode} (fused {summ['fused']}), {DIST_P} gloo "
+            f"ranks, slowest rank per round, {OBS_PROFILE['reps']} rounds: "
+            f"us per iteration by phase " +
+            ", ".join(f"{ph}={us[ph]:.1f}" for ph in PHASE_ORDER) +
+            f"; replayed sum {summ['stage_sum_us_per_iter']:.1f} us, whole "
+            f"solve capped at {summ['iterations_run']} iterations "
+            f"{summ['whole_us_per_iter']:.1f} us an iteration, coverage "
+            f"{summ['coverage']}")
+        for r, res in enumerate(ranks):
+            s_r = res["doc"]["summary"][mode]
+            recs = [x for x in res["doc"]["phases"] if x["comm"] == mode]
+            got = {x["phase"]: x.get("measured_comm_bytes", 0) for x in recs}
+            model = {x["phase"]: x["model_comm_bytes"] for x in recs}
+            if r == 0:
+                log(f"[obs] bytes per phase, rank 0, {mode} (counted / "
+                    f"phase_comm_model): " +
+                    ", ".join(f"{ph}={got[ph]:.0f}/{model[ph]}"
+                              for ph in PHASE_ORDER) +
+                    f"; the iteration {s_r['measured_comm_bytes_per_iter']}"
+                    f" / dist_solve_comm_bytes "
+                    f"{s_r['model_comm_bytes_per_iter']}")
+            require(got == model and s_r["measured_comm_bytes_per_iter"] ==
+                    s_r["model_comm_bytes_per_iter"],
+                    f"rank {r} {mode}: counted bytes {got} differ from the "
+                    f"model {model}")
+    log(f"[obs] gap halo-plan - allgather (us per iteration): " +
+        ", ".join(f"{g['phase']}={g['delta_us']:+.1f}" for g in doc["gap"]))
+    launches, _, _ = launches_that_ran(start)
+    for res in ranks:
+        for k, v in res["launches"].items():
+            launches[k] += v
+    out.update(profile={m: {k: s[k] for k in (
+        "iters", "iterations_run", "whole_us_per_iter",
+        "stage_sum_us_per_iter", "coverage", "measured_comm_bytes_per_iter",
+        "model_comm_bytes_per_iter")} for m, s in doc["summary"].items()},
+        phase_us={m: {r["phase"]: r["us"] for r in doc["phases"]
+                      if r["comm"] == m} for m in doc["summary"]},
+        launches=launches, ranks_s=t_ranks,
+        phase_s=time.perf_counter() - t_phase)
+    log(f"[obs] launches (profile ranks and graph replays included): "
+        f"{launches}; profile ranks {t_ranks:.1f} s; phase took "
+        f"{out['phase_s']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# dserve phase: the solver service over DIST_P ranks in lockstep
+# ---------------------------------------------------------------------------
+
+DSERVE_REQUESTS = 8
+DSERVE_PANEL = 8
+DSERVE_CUT_LOG2N = 16           # the allgather key and the NaN drill
+DSERVE_RATE = 1000.0            # every request arrives within ~10 ms
+
+
+def _dserve_rank_work(rank: int, shards, on_card: bool, shapes: dict,
+                      dshapes: dict, geoms: dict) -> dict:
+    """One rank of ``[dserve]``: a ``SolverService`` with the rank's
+    ``Comm`` per episode, in lockstep with the other ranks.  ``shards``:
+    the rank's ``local_shard`` of the N = 2^20 operator and of the cut
+    one.  Returns per episode the metrics, the dispatch log and (rank 0)
+    the gathered answers; and the rank's launches."""
+    import torch
+    from repro_torch.core.comm import Comm
+    from repro_torch.kernels import ops
+    from repro_torch.serving import (OperatorCache, OperatorKey,
+                                     PoissonLoad, ServiceFaultPlan,
+                                     SolverService, gather_answers)
+    from repro_torch.solvers import krylov
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    krylov.set_guards_enabled(False)
+    comm = Comm()
+    ops.reset_launch_counts()
+    dev = shards["full"].u_leaf.device
+    cache = OperatorCache(max_bytes=1 << 34)
+
+    def service(plan=None, cost=None):
+        return SolverService(cache, panel_width=DSERVE_PANEL,
+                             restart_every=SERVE_RESTART,
+                             max_segments=SERVE_MAX_SEGMENTS, tol=SERVE_TOL,
+                             dispatch_cost=cost, seed=0, fault_plan=plan,
+                             device=dev, backend="cuda", comm=comm)
+
+    def build(which):
+        return lambda: (shapes[which], shards[which],
+                        {"dshape": dshapes[which]})
+
+    def key(which, mode):
+        return OperatorKey(geometry=geoms[which], kernel=("exponential", 0.1),
+                           tol=SERVE_COMPRESS_TOL, comm=mode)
+
+    def load(which):
+        return PoissonLoad(n=shapes[which].n, rate=DSERVE_RATE,
+                           n_requests=DSERVE_REQUESTS, tol=SERVE_TOL,
+                           seed=SERVE_SEED).requests()
+
+    def must_not_build():
+        raise AssertionError("the cut halo-plan operator was rebuilt")
+
+    episodes = {
+        "full/halo-plan": ("full", "halo-plan", None, None, build("full")),
+        "cut/halo-plan": ("cut", "halo-plan", None, SERVE_DRILL_COST,
+                          build("cut")),
+        "cut/allgather": ("cut", "allgather", None, SERVE_DRILL_COST,
+                          build("cut")),
+        "cut/halo-plan nan drill": ("cut", "halo-plan",
+                                    ServiceFaultPlan(nan_at={1}),
+                                    SERVE_DRILL_COST, must_not_build)}
+    out = {}
+    for name, (which, mode, plan, cost, fn) in episodes.items():
+        comm.barrier()
+        t0 = time.perf_counter()
+        rep = service(plan, cost).serve(load(which), key(which, mode), fn)
+        wall = time.perf_counter() - t0
+        xs = gather_answers(rep, comm)
+        m = dict(rep.metrics)
+        m["cache"] = {k: v for k, v in m["cache"].items()
+                      if k != "build_seconds"}
+        out[name] = dict(
+            metrics=m, log=rep.dispatch_log(), wall_s=wall,
+            p50=rep.percentile(50), p99=rep.percentile(99),
+            done={r: (c.status, c.iters, c.via)
+                  for r, c in rep.completions.items()},
+            x={r: v.cpu() for r, v in xs.items()} if rank == 0 else None)
+    out["launches"] = ops.launch_counts()
+    krylov.set_guards_enabled(True)
+    return out
+
+
+def dserve_phase(torch, keep: dict, device: str = "cuda") -> dict:
+    """The solver service over ``DIST_P`` gloo ranks on the card, in
+    lockstep (``SolverService(comm=...)`` on every rank): the ``[serve]``
+    operator (N = 2^20, compressed at 1e-5) partitioned by ``partition_h2``
+    and keyed ``halo-plan``, 8 requests on a panel of 8 at tol 1e-4, 100
+    iterations a dispatch, the Krylov guards off (as ``[serve]``), on the
+    wall clock (each dispatch costs the slowest rank's wall); then, cut to
+    N = 2^16 (``DSERVE_CUT_LOG2N``), the local key in this process (CUDA
+    graphs), the ``halo-plan`` and ``allgather`` keys and the NaN drill on
+    the cached halo-plan resident (a hit, retried).  Every answer is
+    recomputed with the single-device plain HGEMV (10 x tol), the cut
+    answers also held to the local service's, every rank's metrics and
+    dispatch log to rank 0's."""
+    import types
+
+    from repro_torch.core.clustering import regular_grid_points
+    from repro_torch.core.compression import compress
+    from repro_torch.core.construction import construct_h2
+    from repro_torch.core.dist import local_shard, partition_h2
+    from repro_torch.core.kernels_fn import exponential_kernel
+    from repro_torch.serving import (OperatorCache, OperatorKey,
+                                     PoissonLoad, SolverService,
+                                     geometry_digest)
+    from repro_torch.solvers import krylov
+
+    t_phase = time.perf_counter()
+    on_card = device == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    backend = "cuda" if on_card else "torch"
+    start = tally_start()
+    shapes = {"full": keep["serve_shape"]}
+    datas = {"full": keep["serve_data"]}
+    geoms = {"full": geometry_digest(keep["serve_pts"])}
+    side = 1 << (DSERVE_CUT_LOG2N // 2)
+    pts = regular_grid_points(side, 2)
+    s0, d0, _, _ = construct_h2(pts, exponential_kernel(0.1), leaf_size=64,
+                                cheb_p=6, eta=0.9, device=device)
+    shapes["cut"], datas["cut"] = compress(s0, d0, tol=SERVE_COMPRESS_TOL,
+                                           backend=backend)
+    geoms["cut"] = geometry_digest(pts)
+    del s0, d0
+    sync()
+    t0 = time.perf_counter()
+    parts = {w: partition_h2(shapes[w], datas[w], DIST_P, device=device)
+             for w in shapes}
+    sync()
+    t_part = time.perf_counter() - t0
+    dshapes = {w: parts[w][0] for w in parts}
+
+    # the local service the cut answers are held to (graphs, kernels)
+    guards = krylov.guards_enabled()
+    krylov.set_guards_enabled(False)
+    try:
+        local = SolverService(
+            OperatorCache(max_bytes=1 << 34), panel_width=DSERVE_PANEL,
+            restart_every=SERVE_RESTART, max_segments=SERVE_MAX_SEGMENTS,
+            tol=SERVE_TOL, dispatch_cost=SERVE_DRILL_COST, seed=0,
+            device=device, backend=backend).serve(
+            PoissonLoad(n=shapes["cut"].n, rate=DSERVE_RATE,
+                        n_requests=DSERVE_REQUESTS, tol=SERVE_TOL,
+                        seed=SERVE_SEED).requests(),
+            OperatorKey(geometry=geoms["cut"], kernel=("exponential", 0.1),
+                        tol=SERVE_COMPRESS_TOL),
+            lambda: (shapes["cut"], datas["cut"], {}))
+    finally:
+        krylov.set_guards_enabled(guards)
+    require(all(c.status == "ok" for c in local.completions.values()),
+            "a local cut request did not end ok")
+
+    t0 = time.perf_counter()
+    ranks = run_ranks(
+        torch, _dserve_rank_work, (shapes, dshapes, geoms),
+        [{w: local_shard(dshapes[w], parts[w][1], r) for w in parts}
+         for r in range(DIST_P)], device)
+    t_ranks = time.perf_counter() - t0
+    del parts
+    if on_card:
+        torch.cuda.ipc_collect()
+
+    r0 = ranks[0]
+    worst, out = {}, {}
+    for name, ep in r0.items():
+        if name == "launches":
+            continue
+        which = name.split("/")[0]
+        m = ep["metrics"]
+        for r, res in enumerate(ranks[1:], start=1):
+            require(res[name]["metrics"] == m and res[name]["log"] ==
+                    ep["log"] and res[name]["done"] == ep["done"],
+                    f"[dserve] rank {r} disagrees with rank 0 on {name}")
+        reqs = PoissonLoad(n=shapes[which].n, rate=DSERVE_RATE,
+                           n_requests=DSERVE_REQUESTS, tol=SERVE_TOL,
+                           seed=SERVE_SEED).requests()
+        done = {q: types.SimpleNamespace(x=v.to(device))
+                for q, v in ep["x"].items()}
+        rel = _serve_recompute(torch, shapes[which], datas[which],
+                               {q.rid: q.b for q in reqs}, done)
+        worst[name] = max(rel.values())
+        its = sorted(v[1] for v in ep["done"].values())
+        msg = (f"[dserve] {name}: {m['completed']} completed, statuses "
+               f"{sorted({v[0] for v in ep['done'].values()})}, "
+               f"{m['dispatches']} dispatches, failures "
+               f"{m['dispatch_failures']}, retries {m['retries']}, cache "
+               f"{m['cache']}; iterations {its}; virtual p50 {ep['p50']:.3f}"
+               f" s, p99 {ep['p99']:.3f} s, makespan {m['makespan_s']:.3f} "
+               f"s; wall {ep['wall_s']:.1f} s; recomputed ||b - (x + A x)|| "
+               f"/ ||b|| max {worst[name]:.3e} (tol {SERVE_RECOMPUTE_TOL:g}); "
+               f"dispatch log equal on {DIST_P} ranks "
+               f"({len(ep['log'])} entries)")
+        if which == "cut":
+            gap = max(float((ep["x"][q].double() - c.x.cpu().double())
+                            .norm() / c.x.cpu().double().norm())
+                      for q, c in local.completions.items())
+            msg += f"; vs the local service's answers {gap:.3e}"
+            ep["vs_local"] = gap
+        log(msg)
+        require(m["completed"] == DSERVE_REQUESTS and
+                all(v[0] == "ok" for v in ep["done"].values()),
+                f"[dserve] {name}: a request did not end ok")
+        out[name] = dict(completed=m["completed"],
+                         dispatches=m["dispatches"],
+                         failures=m["dispatch_failures"],
+                         retries=m["retries"], iters=its, p50_s=ep["p50"],
+                         p99_s=ep["p99"], makespan_s=m["makespan_s"],
+                         wall_s=ep["wall_s"], recomputed_max=worst[name],
+                         vs_local=ep.get("vs_local"))
+    nan = r0["cut/halo-plan nan drill"]["metrics"]
+    require(nan["dispatch_failures"] >= 1 and nan["retries"] >= 1 and
+            nan["cache"]["hits"] >= 1,
+            f"[dserve] the NaN drill did not retry on a cache hit: {nan}")
+    require(all(v <= SERVE_RECOMPUTE_TOL for v in worst.values()),
+            f"[dserve] recomputed residuals {worst}")
+    launches, _, _ = launches_that_ran(start)
+    for res in ranks:
+        for k, v in res["launches"].items():
+            launches[k] += v
+    t_phase = time.perf_counter() - t_phase
+    log(f"[dserve] launches (ranks and graph replays included): "
+        f"{launches}; partition {t_part:.2f} s, ranks {t_ranks:.1f} s; "
+        f"phase took {t_phase:.1f} s")
+    return dict(episodes=out, launches=launches, partition_s=t_part,
+                phase_s=t_phase)
 
 
 def main() -> int:
@@ -3699,6 +4191,7 @@ def main() -> int:
                 f"{name} was not launched by the operator checks")
     log(f"[memory] max_memory_allocated {torch.cuda.max_memory_allocated()}"
         f" bytes")
+    obs_a = obs_hgemv_phase(torch, state)
     dist = dist_phase(torch, timer, state, results)
     del state
     for name, n in dist["launches"].items():
@@ -3718,6 +4211,14 @@ def main() -> int:
     dsolve = dsolve_phase(torch, keep)
     for name, n in dsolve["launches"].items():
         log(f"[kernels] {name}: {n} launches on the distributed solve path")
+    obs_b = obs_phase(torch, keep)
+    obs_launches = {k: obs_a["launches"][k] + obs_b["launches"][k]
+                    for k in KERNELS}
+    for name, n in obs_launches.items():
+        log(f"[kernels] {name}: {n} launches on the obs path")
+    for name in ("batched_gemm", "coupling_mv", "halo_pack"):
+        require(obs_launches[name] > 0,
+                f"{name} was not launched on the obs path")
     chaos = chaos_phase(torch, keep)
     for name, n in chaos["launches"].items():
         log(f"[kernels] {name}: {n} launches on the chaos path")
@@ -3740,9 +4241,17 @@ def main() -> int:
         require(guard["launches"][name] > 0,
                 f"{name} was not launched by the certified constructions and "
                 f"guarded solves")
-    serve = serve_phase(torch)
+    served = {}
+    serve = serve_phase(torch, keep=served)
     for name, n in serve["launches"].items():
         log(f"[kernels] {name}: {n} launches on the serve path")
+    dserve = dserve_phase(torch, served)
+    del served
+    for name, n in dserve["launches"].items():
+        log(f"[kernels] {name}: {n} launches on the distributed serve path")
+    for name in ("batched_gemm", "coupling_mv", "halo_pack"):
+        require(dserve["launches"][name] > 0,
+                f"{name} was not launched on the distributed serve path")
     kernels = []
     for name in KERNELS:
         r = results[name]
@@ -3753,7 +4262,8 @@ def main() -> int:
             launches=(main["launches"][name] + dist["launches"][name] +
                       solve["launches"][name] + dsolve["launches"][name] +
                       sketch["launches"][name] + guard_launches[name] +
-                      chaos["launches"][name] + serve["launches"][name]),
+                      chaos["launches"][name] + serve["launches"][name] +
+                      obs_launches[name] + dserve["launches"][name]),
             max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"]))
@@ -3786,6 +4296,12 @@ def main() -> int:
                               if k != "launches"},
                     "serve": {k: v for k, v in serve.items()
                               if k != "launches"},
+                    "obs": {**{k: v for k, v in obs_a.items()
+                               if k != "launches"},
+                            **{k: v for k, v in obs_b.items()
+                               if k != "launches"}},
+                    "dserve": {k: v for k, v in dserve.items()
+                               if k != "launches"},
                     "kernel_detail": detail, "card": smi}))
     log(smi)
     log(json.dumps({"kernels": kernels}))

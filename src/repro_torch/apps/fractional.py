@@ -539,7 +539,11 @@ def make_dist_solve_local(dshape: DistH2Shape, mg, args, comm: Comm, n: int,
     preconditioner (``precond`` None without ``use_precond``).  ``fused``
     selects the DESIGN.md §12 iteration schedule (default: on for the
     halo-plan comm modes); ``schedule``/``backend`` thread through to the
-    H^2 matvec (``core.dist``).
+    H^2 matvec (``core.dist``).  The dict also carries what ``apply_a``
+    was built from -- ``dshape``, ``mg``, ``args``, ``n``, ``h``,
+    ``mode``, ``schedule``, ``backend`` and ``packs`` (the two
+    transpositions' pack tables, None unless fused) -- which
+    ``obs.profile_solve`` cuts into stages.
     """
     if method not in ("pcg", "gmres"):
         raise ValueError(f"unknown method {method!r}")
@@ -571,7 +575,9 @@ def make_dist_solve_local(dshape: DistH2Shape, mg, args, comm: Comm, n: int,
     tcaps = (aux["tin_send"].shape[1], aux["tout_send"].shape[1]) \
         if dshape.p > 1 else (0, 0)
     return {"fn": fn, "apply_a": apply_a, "precond": pre, "fused": fused,
-            "hide": hide, "tcaps": tcaps}
+            "hide": hide, "tcaps": tcaps, "dshape": dshape, "mg": mg,
+            "args": args, "n": n, "h": h, "mode": mode,
+            "schedule": schedule, "backend": backend, "packs": packs}
 
 
 def make_dist_solve(prob: Dict, comm: Comm, method: str = "pcg",
@@ -584,17 +590,15 @@ def make_dist_solve(prob: Dict, comm: Comm, method: str = "pcg",
     """This rank's whole fractional solve over ``comm``: partitions
     ``prob`` for ``comm.p`` ranks on ``device`` (every rank builds the same
     partition and keeps its views) and returns ``make_dist_solve_local``'s
-    dict plus ``dshape``, ``mg`` and ``args`` (the rank's views)."""
+    dict (``args``: the rank's views)."""
     dshape, mg, args = build_dist_problem(prob, comm.p, n_cycles=n_cycles,
                                           nu=nu, omega=omega, device=device)
     args = local_args(dshape, mg, args, comm.rank)
-    parts = make_dist_solve_local(
+    return make_dist_solve_local(
         dshape, mg, args, comm, prob["n"], prob["h"], method=method,
         mode=mode, tol=tol, maxiter=maxiter, use_precond=use_precond,
         restart=restart, schedule=schedule, backend=backend, fused=fused,
         stag_window=stag_window)
-    parts.update(dshape=dshape, mg=mg, args=args)
-    return parts
 
 
 def solve_distributed(n: int, comm: Comm, beta: float = 0.75,

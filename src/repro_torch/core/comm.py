@@ -21,7 +21,10 @@ The transport is chosen once, from the group's backend:
 
 ``recv_bytes`` counts the bytes each collective brought to this rank over
 the wire (a rank's own slice of a gather or all-to-all is not counted),
-the quantity ``dist.matvec_comm_bytes`` models.
+the quantity ``dist.matvec_comm_bytes`` models; ``recv_by_kind`` splits
+them by collective kind under the reference's HLO names (``all-gather``,
+``collective-permute``, ``all-to-all``, and ``all-reduce`` for ``psum``),
+which ``perf.comm_cost`` reads.
 
 ``mesh_comm`` lays the world out as the reference's 2D ``(blk, nv)`` mesh
 (``make_dist_matvec(..., nv_axis=)``) and gives a rank its ``Comm`` over
@@ -31,7 +34,7 @@ its block-row group: the collectives of the distributed HGEMV run along
 from __future__ import annotations
 
 import warnings
-from typing import Callable, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -71,11 +74,17 @@ class Comm:
         self._world_rank = (lambda r: r) if self.group is dist.group.WORLD \
             else (lambda r: dist.get_global_rank(self.group, r))
         self.recv_bytes = 0
+        self.recv_by_kind: Dict[str, int] = {}
         self.staged_bytes = 0
 
     def reset_counts(self) -> None:
         self.recv_bytes = 0
+        self.recv_by_kind = {}
         self.staged_bytes = 0
+
+    def _count(self, kind: str, nbytes: int) -> None:
+        self.recv_bytes += nbytes
+        self.recv_by_kind[kind] = self.recv_by_kind.get(kind, 0) + nbytes
 
     # -- transport -------------------------------------------------------
 
@@ -106,9 +115,10 @@ class Comm:
 
     # -- collectives -------------------------------------------------------
 
-    def all_gather_async(self, x: torch.Tensor) -> Pending:
+    def all_gather_async(self, x: torch.Tensor, kind: str = "all-gather"
+                         ) -> Pending:
         """Tiled gather along axis 0: ``[n, ...] -> [p*n, ...]``, rank
-        order."""
+        order.  ``kind``: the name its bytes are counted under."""
         src = self._wire(x)
         out = self._empty_wire((self.p * x.shape[0], *x.shape[1:]), x)
         with warnings.catch_warnings():
@@ -117,11 +127,12 @@ class Comm:
             warnings.simplefilter("ignore", FutureWarning)
             work = dist.all_gather_into_tensor(out, src, group=self.group,
                                                async_op=True)
-        self.recv_bytes += (self.p - 1) * x.numel() * x.element_size()
+        self._count(kind, (self.p - 1) * x.numel() * x.element_size())
         return Pending([work], out, self._finisher(x), src)
 
-    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
-        return self.all_gather_async(x).wait()
+    def all_gather(self, x: torch.Tensor, kind: str = "all-gather"
+                   ) -> torch.Tensor:
+        return self.all_gather_async(x, kind).wait()
 
     def ppermute_async(self, x: torch.Tensor,
                        perm: Sequence[Tuple[int, int]], tag: int = 0
@@ -142,7 +153,7 @@ class Comm:
         if src:
             ops.append(dist.P2POp(dist.irecv, out, self._world_rank(src[0]),
                                   group=self.group, tag=tag))
-            self.recv_bytes += x.numel() * x.element_size()
+            self._count("collective-permute", x.numel() * x.element_size())
         works = dist.batch_isend_irecv(ops) if ops else []
         return Pending(works, out, self._finisher(x), sent)
 
@@ -160,7 +171,8 @@ class Comm:
         out = self._empty_wire(tuple(buf.shape), buf)
         work = dist.all_to_all_single(out, src, group=self.group,
                                       async_op=True)
-        self.recv_bytes += (self.p - 1) * buf[0].numel() * buf.element_size()
+        self._count("all-to-all",
+                    (self.p - 1) * buf[0].numel() * buf.element_size())
         return Pending([work], out, self._finisher(buf), src)
 
     def all_to_all(self, buf: torch.Tensor) -> torch.Tensor:
@@ -172,10 +184,12 @@ class Comm:
         order itself: a solver's host reads a flag computed from such sums
         once a segment, and ranks that read different flags would leave
         the loop at different segments and hang (an ``all_reduce``
-        promises no bitwise agreement across ranks)."""
+        promises no bitwise agreement across ranks).  Its bytes count as
+        ``all-reduce``: the ``(p-1)`` partials are the reference's
+        all-reduce wire factor."""
         if self.p == 1:
             return t
-        parts = self.all_gather(t.reshape(1, *t.shape))
+        parts = self.all_gather(t.reshape(1, *t.shape), "all-reduce")
         out = parts[0]
         for q in range(1, self.p):
             out = out + parts[q]

@@ -344,9 +344,12 @@ def _marshaled(s_mar: torch.Tensor, src: torch.Tensor, idx: torch.Tensor
 
 
 def _coupling_phase(dshape: DistH2Shape, d: DistH2Data, xhat, xhat_top,
-                    comm: Comm, mode: str):
+                    comm: Comm, mode: str, gathered: Optional[Dict] = None):
     """yhat at branch levels (local) + top levels (replicated), for the
-    ``allgather`` and broadcast ``ppermute`` modes."""
+    ``allgather`` and broadcast ``ppermute`` modes.  ``gathered``
+    (allgather mode only) optionally supplies the already gathered levels
+    ``{l: [2**l, k, nv]}``, so the exchange can be cut into a stage of its
+    own (``obs.profile_solve``)."""
     depth, lc, p = dshape.depth, dshape.lc, dshape.p
     nv = xhat[depth].shape[-1]
     yhat: Dict[int, torch.Tensor] = {}
@@ -360,7 +363,8 @@ def _coupling_phase(dshape: DistH2Shape, d: DistH2Data, xhat, xhat_top,
         cols = d.pb_col[i]                    # [nloc*maxb] global col plan
         if mode == "allgather" and p > 1:
             with phase("hgemv/exchange"):
-                src = comm.all_gather(xhat[l])
+                src = gathered[l] if gathered is not None else \
+                    comm.all_gather(xhat[l])
             idx = cols
         else:
             rad = dshape.br_radius[i] if p > 1 else 0
@@ -569,7 +573,8 @@ def _coupling_phase_overlap(dshape: DistH2Shape, d: DistH2Data, xhat,
                             xhat_top, x_leaves, comm: Comm, mode: str,
                             backend: str = "cuda", schedule: str = "auto",
                             hide_flops: int = 0,
-                            tables: Optional[dict] = None):
+                            tables: Optional[dict] = None,
+                            chunks: Optional[Dict[int, torch.Tensor]] = None):
     """Compressed-halo coupling + dense phases on the §4.2 schedule:
     (A) pack and issue the whole matvec's exchange; (B) every diagonal
     (own-column) product, the dense diagonal block and the replicated top
@@ -577,7 +582,9 @@ def _coupling_phase_overlap(dshape: DistH2Shape, d: DistH2Data, xhat,
     C-level gather); (C) wait, slice the landed payloads into per-level
     halo buffers and finish the off-diagonal products (or, for levels the
     policy left fused, the whole level's combined product).  Returns
-    ``(yhat, yhat_top, y_dense)``."""
+    ``(yhat, yhat_top, y_dense)``.  ``chunks`` optionally supplies the
+    already landed payloads (``_hp_pack_exchange``'s), so the exchange can
+    be cut into a stage of its own (``obs.profile_solve``)."""
     depth, lc, p = dshape.depth, dshape.lc, dshape.p
     m = dshape.leaf_size
     nl = dshape.leaves_per_dev
@@ -585,10 +592,13 @@ def _coupling_phase_overlap(dshape: DistH2Shape, d: DistH2Data, xhat,
     DENSE = depth + 1                          # key of the dense payload
     seg, _ = _hp_payload_layout(dshape, nv)
 
-    with phase("hgemv/exchange"):
-        land = _hp_pack_exchange(dshape, d, xhat, x_leaves, comm, mode,
-                                 backend, merged=hide_flops > 0,
-                                 tables=tables)
+    if chunks is not None:
+        land = lambda: chunks                     # noqa: E731
+    else:
+        with phase("hgemv/exchange"):
+            land = _hp_pack_exchange(dshape, d, xhat, x_leaves, comm, mode,
+                                     backend, merged=hide_flops > 0,
+                                     tables=tables)
 
     def _split(i, k):
         rows = d.s_br_mar[i].shape[0]
@@ -628,7 +638,7 @@ def _coupling_phase_overlap(dshape: DistH2Shape, d: DistH2Data, xhat,
         yhat_top = _top_coupling(dshape, d, xhat_top, nv)
 
     # --- phase C: finish from the landed payloads
-    chunks = land()
+    landed_chunks = land()
 
     def _landed(src, key, offsets, caps, width):
         """``[nloc + sum(caps), width, nv]`` buffer in plan layout."""
@@ -636,7 +646,7 @@ def _coupling_phase_overlap(dshape: DistH2Shape, d: DistH2Data, xhat,
             pieces = [src]
             for delta, cap in zip(offsets, caps):
                 lo, sz = seg[(key, delta)]
-                pieces.append(chunks[delta][lo:lo + sz]
+                pieces.append(landed_chunks[delta][lo:lo + sz]
                               .reshape(cap, width, nv).to(src.dtype))
             return torch.cat(pieces, dim=0)
 
@@ -696,15 +706,17 @@ def _local_downsweep(dshape: DistH2Shape, d: DistH2Data, yhat, yhat_top,
 
 
 def _dense_phase(dshape: DistH2Shape, d: DistH2Data, x_leaves, comm: Comm,
-                 mode: str):
+                 mode: str, gathered: Optional[torch.Tensor] = None):
     """Dense leaves for the ``allgather`` and broadcast ``ppermute``
-    modes."""
+    modes.  ``gathered`` (allgather mode only) optionally supplies the
+    already gathered leaves, as ``_coupling_phase``'s."""
     p = dshape.p
     nloc = dshape.leaves_per_dev
     m = dshape.leaf_size
     if mode == "allgather" and p > 1:
         with phase("hgemv/exchange"):
-            src = comm.all_gather(x_leaves)
+            src = gathered if gathered is not None else \
+                comm.all_gather(x_leaves)
         idx = d.pd_col
     else:
         rad = dshape.dense_radius if p > 1 else 0

@@ -1,10 +1,20 @@
-"""Phase annotation for profiles.
+"""Phase annotation for profiles (the reference's ``repro/obs/trace.py``).
 
 ``phase("hgemv/upsweep")`` wraps a block in
 ``torch.profiler.record_function(name)``, which names the region in a
 ``torch.profiler`` trace (host range plus the device kernels launched under
 it) and costs nothing measurable when no profiler is active.  Every phase
 entered is recorded in ``PHASES_SEEN``, as in the reference.
+
+The annotation is neutral: it adds no device work and changes no result.
+``record_function`` dispatches only the ``profiler::`` marks that open and
+close its range; the ATen operations a function issues are the same with
+tracing on and off (``tests/test_torch_obs.py`` records them with a
+``TorchDispatchMode``), the counterpart of the reference's byte-equal
+jaxprs.  The switch exists to prove that and as an escape hatch: set
+``REPRO_OBS_DISABLE=1`` in the environment or call ``set_enabled(False)``;
+while disabled, ``phase`` does nothing at all (no ``record_function``, no
+``PHASES_SEEN`` entry, no ``phase_times``/``phase_events`` accounting).
 
 Inside ``phase_times(sync)`` every phase also adds its host-clock time
 (``sync()`` at entry and exit, so a phase's time includes the device work
@@ -18,6 +28,8 @@ enqueues it, and a host sync inside the phase).
 from __future__ import annotations
 
 import contextlib
+import functools
+import os
 import time
 from collections import defaultdict
 from typing import Callable, Dict, Iterator, List, Optional, Set, Tuple
@@ -28,11 +40,26 @@ PHASES_SEEN: Set[str] = set()
 _TIMES: Optional[Dict[str, float]] = None
 _EVENTS: Optional[List[Tuple[str, object, object]]] = None
 _SYNC: Callable[[], None] = lambda: None
+_ENABLED = os.environ.get("REPRO_OBS_DISABLE", "0") != "1"
+
+
+def enabled() -> bool:
+    return _ENABLED
+
+
+def set_enabled(flag: bool) -> None:
+    """Toggle annotation for every ``phase`` entered from now on."""
+    global _ENABLED
+    _ENABLED = bool(flag)
 
 
 @contextlib.contextmanager
 def phase(name: str) -> Iterator[None]:
-    """Annotate the enclosed work as belonging to ``name``."""
+    """Annotate the enclosed work as belonging to ``name`` (hierarchical
+    slash-paths; nesting ``phase`` blocks nests the ranges)."""
+    if not _ENABLED:
+        yield
+        return
     PHASES_SEEN.add(name)
     with torch.profiler.record_function(name):
         if _EVENTS is not None:
@@ -90,3 +117,14 @@ def phase_events() -> Iterator[Dict[str, float]]:
             times[name] += a.elapsed_time(b)
     finally:
         _EVENTS = None
+
+
+def annotate(name: str):
+    """Decorator form: ``@annotate("hgemv/upsweep")`` wraps every call."""
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapped(*args, **kwargs):
+            with phase(name):
+                return fn(*args, **kwargs)
+        return wrapped
+    return deco

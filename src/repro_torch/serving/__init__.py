@@ -13,12 +13,14 @@ from repro_torch.serving.loadgen import PoissonLoad
 from repro_torch.serving.service import (ServeReport, ServiceFaultPlan,
                                          SolverService,
                                          ThreadedSolverService,
-                                         default_make_apply)
+                                         default_make_apply,
+                                         default_make_dist_apply,
+                                         gather_answers)
 
 __all__ = [
     "OperatorCache", "OperatorKey", "CacheEntry", "geometry_digest",
     "RequestQueue", "QueueFull", "SolveRequest", "Completion", "PanelState",
     "PoissonLoad", "SolverService", "ThreadedSolverService",
     "ServiceFaultPlan", "ServeReport",
-    "default_make_apply",
+    "default_make_apply", "default_make_dist_apply", "gather_answers",
 ]

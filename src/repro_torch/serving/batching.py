@@ -124,12 +124,14 @@ class PanelState:
     ``reqs[j]`` is the request occupying column ``j`` (None = free slot);
     ``b``/``x`` are the ``[n, width]`` RHS and current iterate on
     ``device`` (zeros in free slots); ``iters[j]`` accumulates across
-    segments (host numpy, as the per-column guard state).
+    segments (host numpy, as the per-column guard state).  A rank of a
+    distributed serve holds rows ``row0 .. row0 + n`` of each request.
     """
     n: int
     width: int
     dtype: torch.dtype = torch.float32
     device: Any = "cuda"
+    row0: int = 0
     reqs: List[Optional[SolveRequest]] = dataclasses.field(
         default_factory=list)
     b: torch.Tensor = dataclasses.field(default=None)
@@ -161,8 +163,9 @@ class PanelState:
         assert len(reqs) <= len(slots), (len(reqs), len(slots))
         for j, req in zip(slots, reqs):
             self.reqs[j] = req
-            self.b[:, j] = torch.as_tensor(req.b, dtype=self.dtype).to(
-                self.b.device)
+            self.b[:, j] = torch.as_tensor(
+                req.b[self.row0:self.row0 + self.n],
+                dtype=self.dtype).to(self.b.device)
             self.x[:, j] = 0.0
             self.iters[j] = 0
             self.status[j] = 0

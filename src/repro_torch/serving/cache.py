@@ -20,8 +20,9 @@ byte budget measured by the structure's own accounting
 the same number the paper reports as compressed operator memory.
 
 ``OperatorKey.comm`` keys other than ``"local"`` name operators
-partitioned for distributed serving, which needs a service run on every
-rank in lockstep; the port's ``SolverService`` refuses them.
+partitioned for distributed serving: each rank's cache holds its shard,
+served by a ``SolverService`` given the rank's ``comm`` in lockstep with
+the other ranks (``serving/service.py``).
 """
 from __future__ import annotations
 

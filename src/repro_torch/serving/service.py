@@ -40,9 +40,24 @@ cache entry, so their captured CUDA graphs live as long as the entry and
 a second service on the same entry captures nothing.  The panel lives on
 ``device``.  ``ThreadedSolverService``'s one worker thread does all the
 device work (the operator's build included); submitters only enqueue.
-Operators keyed for distributed serving (``OperatorKey.comm`` other than
-``"local"``) need a service run on every rank in lockstep, which the port
-does not have: ``SolverService`` refuses them.
+
+Distributed serving (``OperatorKey.comm`` other than ``"local"``: the comm
+mode of ``core.dist``): one ``SolverService`` per rank, each given the
+rank's ``comm=`` (a ``core.comm.Comm``), serves the same request list in
+lockstep.  ``build_fn`` returns the rank's shard (``partition_h2`` +
+``local_shard``) with ``dshape`` in the extras; each rank's panel holds
+its rows of ``b`` and ``x`` (rows ``rank * n_local`` on, cut from the
+full-length requests, which a seeded ``PoissonLoad`` makes alike on every
+rank), and ``block_cg``/``pcg`` run with ``comm=``, eagerly (a segment
+with collectives is not captured).  Every decision is taken on replicated
+values, since a rank that decided differently would hang the others at
+the next collective: the solvers' residuals, iterations and statuses come
+from rank-order ``psum``s; the finite check is psum'd; a dispatch measured
+on the wall clock (``dispatch_cost=None``) costs the slowest rank's wall
+(one gather), so the virtual clock, and with it admission, breaker,
+retry, hedge and degrade, is the same on every rank.  ``gather_answers``
+assembles the answers' rows.  A distributed key without ``comm`` is
+refused, and so is any distributed key on ``ThreadedSolverService``.
 """
 from __future__ import annotations
 
@@ -96,6 +111,14 @@ class ServeReport:
         lats = self.latencies()
         return float(np.percentile(lats, p)) if lats.size else math.nan
 
+    def dispatch_log(self) -> List[tuple]:
+        """The episode's dispatches, backoffs and their virtual times:
+        every span but the operator's acquisition (whose duration is this
+        host's wall clock).  Equal on every rank of a distributed serve."""
+        return [(sp["name"], sp["ts"], sp["dur"],
+                 tuple(sorted(sp["args"].items())))
+                for sp in self.spans if sp["name"] != "serve/operator"]
+
 
 def default_make_apply(shape, backend: str = "cuda"):
     """The served system: SPD covariance solve ``(I + A) x = b`` (the
@@ -108,17 +131,38 @@ def default_make_apply(shape, backend: str = "cuda"):
     return apply
 
 
+def default_make_dist_apply(dshape, comm, mode: str, backend: str = "cuda"):
+    """The served system on a rank's shard: ``x + A x`` on its rows, the
+    distributed HGEMV (``core.dist.make_dist_matvec``) in comm ``mode``."""
+    from repro_torch.core.dist import make_dist_matvec
+
+    mv = make_dist_matvec(dshape, comm, mode, backend)
+
+    def apply(data, x):
+        return x + mv(data, x)
+    return apply
+
+
+def gather_answers(report: ServeReport, comm) -> Dict[int, torch.Tensor]:
+    """rid -> the whole ``Completion.x`` of a distributed serve, its rows
+    gathered from every rank in rank order (every rank calls it; the
+    completions are the same on every rank)."""
+    return {rid: comm.all_gather(c.x)
+            for rid, c in sorted(report.completions.items())
+            if c.x is not None}
+
+
 def _sync(t: torch.Tensor) -> None:
     if t.is_cuda:
         torch.cuda.synchronize(t.device)
 
 
-def _check_local(key: OperatorKey) -> None:
-    if key.comm != "local":
+def _check_key(key: OperatorKey, comm) -> None:
+    if key.comm != "local" and comm is None:
         raise NotImplementedError(
             f"OperatorKey.comm={key.comm!r}: serving a distributed operator "
-            f"needs a service run on every rank in lockstep, which this "
-            f"port does not have; use comm='local'")
+            f"needs a SolverService on every rank in lockstep; pass each "
+            f"rank's comm=")
 
 
 class SolverService:
@@ -134,6 +178,11 @@ class SolverService:
     the clock fully deterministic (drill/test mode): then no wall time
     enters a decision.  ``device``: where the panel lives (the operator's
     device); ``backend``: the default ``make_apply``'s HGEMV backend.
+    ``comm``: this rank's ``Comm`` for distributed keys (module
+    docstring).  ``make_apply(shape)`` overrides the served system's
+    operator for every key; by default a local key applies
+    ``default_make_apply`` and a distributed one
+    ``default_make_dist_apply`` on the entry's ``dshape``.
     """
 
     def __init__(self, cache: Optional[OperatorCache] = None, *,
@@ -150,7 +199,7 @@ class SolverService:
                  dispatch_cost: Optional[Any] = None,
                  detect_delay: float = 5e-3, seed: int = 0,
                  make_apply: Optional[Callable] = None,
-                 device="cuda", backend: str = "cuda"):
+                 device="cuda", backend: str = "cuda", comm=None):
         self.cache = cache if cache is not None else OperatorCache()
         self.panel_width = int(panel_width)
         self.restart_every = int(restart_every)
@@ -173,8 +222,9 @@ class SolverService:
         self.degraded_tol = float(degraded_tol)
         self.dispatch_cost = dispatch_cost
         self.detect_delay = float(detect_delay)
-        self.make_apply = make_apply if make_apply is not None else (
-            lambda shape: default_make_apply(shape, backend))
+        self.make_apply = make_apply
+        self.backend = backend
+        self.comm = comm
         self.device = torch.device(device)
         self._rng = np.random.default_rng(seed)
         self.dispatch_idx = 0           # primary dispatches (fault-keyed)
@@ -190,8 +240,26 @@ class SolverService:
     def operator(self, key: OperatorKey,
                  build_fn: Callable[[], Tuple[Any, Any, Dict]]
                  ) -> CacheEntry:
-        _check_local(key)
+        _check_key(key, self.comm)
         return self.cache.get_or_build(key, build_fn)
+
+    def _dist(self, entry: CacheEntry) -> bool:
+        return entry.key.comm != "local"
+
+    def _apply(self, entry: CacheEntry):
+        if self.make_apply is not None:
+            return self.make_apply(entry.shape)
+        if self._dist(entry):
+            return default_make_dist_apply(entry.extra["dshape"], self.comm,
+                                           entry.key.comm, self.backend)
+        return default_make_apply(entry.shape, self.backend)
+
+    def _rows(self, entry: CacheEntry) -> Tuple[int, int]:
+        """(rows this rank holds, its first row)."""
+        if not self._dist(entry):
+            return entry.shape.n, 0
+        n_local = entry.extra["dshape"].n_local()
+        return n_local, self.comm.rank * n_local
 
     # -- solver programs, cached on the entry ---------------------------
     def _segment_fn(self, entry: CacheEntry, maxiter: int):
@@ -199,15 +267,17 @@ class SolverService:
 
         skey = ("seg", self.panel_width, maxiter)
         if skey not in entry.solvers:
-            apply, data = self.make_apply(entry.shape), entry.data
+            apply, data = self._apply(entry), entry.data
 
             def op(v):
                 return apply(data, v)
             entry.solvers[skey] = op
         op = entry.solvers[skey]
+        comm = self.comm if self._dist(entry) else None
 
         def call(b, x0, tol):
-            res = block_cg(op, b, x0=x0, tol=tol, maxiter=maxiter)
+            res = block_cg(op, b, x0=x0, tol=tol, maxiter=maxiter,
+                           comm=comm)
             _sync(res.x)
             return res
         return call
@@ -218,22 +288,37 @@ class SolverService:
         budget = self.restart_every * self.max_segments
         skey = ("pcg", budget)
         if skey not in entry.solvers:
-            apply, data = self.make_apply(entry.shape), entry.data
+            apply, data = self._apply(entry), entry.data
 
             def one(v):
                 return apply(data, v[:, None])[:, 0]
             entry.solvers[skey] = one
         one = entry.solvers[skey]
+        comm = self.comm if self._dist(entry) else None
 
         def call(b, tol):
-            res = pcg(one, b.contiguous(), tol=tol, maxiter=budget)
+            res = pcg(one, b.contiguous(), tol=tol, maxiter=budget,
+                      comm=comm)
             _sync(res.x)
             return res
         return call
 
     # -- fault-wrapped dispatch -----------------------------------------
+    def _all_finite(self, x: torch.Tensor) -> bool:
+        """Whether every rank's ``x`` is finite (a psum'd count when
+        distributed, so every rank reads the same answer)."""
+        bad = (~torch.isfinite(x)).sum().to(torch.float32)
+        if self.comm is not None and self.comm.p > 1:
+            bad = self.comm.psum(bad)
+        return not bool(bad)
+
     def _virtual_cost(self, wall: float, active: int) -> float:
         if self.dispatch_cost is None:
+            if self.comm is not None and self.comm.p > 1:
+                # the slowest rank's wall: the same clock on every rank
+                walls = self.comm.all_gather(torch.tensor(
+                    [wall], dtype=torch.float64, device=self.device))
+                return float(walls.max())
             return wall
         if callable(self.dispatch_cost):
             return float(self.dispatch_cost(active))
@@ -261,7 +346,7 @@ class SolverService:
         if idx in self.plan.nan_at:     # simulated solver blow-up
             # poison a copy: the result is never a graph's static buffer
             res = dataclasses.replace(res, x=res.x * float("nan"))
-        if not bool(torch.isfinite(res.x).all()):
+        if not self._all_finite(res.x):
             e = StepFailure("solver diverged (non-finite iterate)")
             e.duration = dur
             raise e
@@ -297,7 +382,7 @@ class SolverService:
             wall = time.perf_counter() - t0
             dur = self._virtual_cost(wall, panel.occupancy) \
                 + self.plan.straggle_at.get(idx, 0.0)
-            if not bool(torch.isfinite(res.x).all()):
+            if not self._all_finite(res.x):
                 return res_p, primary_dur
         except StepFailure:
             return res_p, primary_dur   # hedge lost; primary stands
@@ -412,8 +497,9 @@ class SolverService:
                        {"cache": self.cache.stats()})
         queue = RequestQueue(self.queue_capacity,
                              drain_hint=self.queue_drain_hint)
-        panel = PanelState(n=entry.shape.n, width=self.panel_width,
-                           device=self.device)
+        rows, row0 = self._rows(entry)
+        panel = PanelState(n=rows, width=self.panel_width,
+                           device=self.device, row0=row0)
         completions: Dict[int, Completion] = {}
         max_total_iters = self.restart_every * self.max_segments
         clock = 0.0
@@ -539,7 +625,13 @@ class ThreadedSolverService:
     def __init__(self, service: SolverService, key: OperatorKey,
                  build_fn: Callable[[], Tuple[Any, Any, Dict]],
                  poll: float = 0.002):
-        _check_local(key)
+        if key.comm != "local":
+            raise NotImplementedError(
+                f"OperatorKey.comm={key.comm!r}: the threaded front-end "
+                f"admits requests by each rank's own wall clock, which the "
+                f"ranks do not share, so distributed ranks would not stay "
+                f"in lockstep; serve the key with SolverService(comm=...) "
+                f"on every rank")
         self.service = service
         self._queue = RequestQueue(service.queue_capacity,
                                    drain_hint=service.queue_drain_hint)

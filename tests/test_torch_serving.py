@@ -23,6 +23,7 @@ import dataclasses
 import json
 import threading
 import time
+import types
 
 import numpy as np
 import pytest
@@ -444,14 +445,22 @@ class TestServeLoop:
 
     @pytest.mark.parametrize("comm", ["halo-plan", "allgather"])
     def test_distributed_key_is_refused(self, operator, comm):
+        """A distributed key needs each rank's ``comm=`` (served in
+        lockstep: ``tests/test_torch_serving_dist.py``); the threaded
+        front-end refuses one even with a ``comm``, since its admissions
+        follow each rank's own wall clock."""
         _, key, build, _ = operator
         dkey = dataclasses.replace(key, comm=comm)
         svc = _drill_service()
         with pytest.raises(NotImplementedError, match="every rank"):
             svc.serve(_load(n_requests=2).requests(), dkey, build)
-        with pytest.raises(NotImplementedError, match="every rank"):
+        with pytest.raises(NotImplementedError, match="wall clock"):
             ThreadedSolverService(svc, dkey, build)
+        ranked = _drill_service(comm=types.SimpleNamespace(rank=0, p=1))
+        with pytest.raises(NotImplementedError, match="wall clock"):
+            ThreadedSolverService(ranked, dkey, build)
         assert svc.cache.stats()["misses"] == 0
+        assert ranked.cache.stats()["misses"] == 0
 
 
 # ---------------------------------------------------------------------------
