@@ -110,7 +110,7 @@ a calibration panel for the iterations per request and the time per
 dispatch (beside restarts every 25 iterations, no restart, and the first
 dispatch with the Krylov guards on, which trips their stagnation check),
 a benchmark on the wall clock at twice the panel's service rate (p50,
-p99, throughput, occupancy, a cache hit), the fault drill twice
+p99, throughput, occupancy, a cache hit), the fault drill twice on 16 requests
 (reproducible), both degraded paths (per-column ``pcg`` and
 ``degraded="loose"``), the threaded front-end (4 submitters x 8
 requests), every ``ok`` answer recomputed with the plain HGEMV (10 x the
@@ -122,7 +122,26 @@ slowest rank's wall), then, cut to N = 2^16, the local key in this
 process, the halo-plan and allgather keys and a NaN drill on the cached
 halo-plan resident; every answer recomputed with the plain HGEMV (10 x
 tol), the cut ones also against the local service's, every rank's
-metrics and dispatch log equal to rank 0's.
+metrics and dispatch log equal to rank 0's; then the threaded front-end
+on distributed keys (``[tserve]``): that cut operator over 4 gloo ranks,
+one ``ThreadedSolverService`` per rank in lockstep, rank 0's 4 submitter
+threads sending 24 requests (halo-plan key) and 17 (allgather key) into
+a queue of 8 (more than a panel of 8 and the queue hold, so the queue
+refuses some while the first panel solves), every rid completed once, answers recomputed (10 x tol),
+each rank receiving only its own rows of the admitted right-hand sides,
+metrics equal on every rank, ``close()`` returned on every rank; the H^2
+dry run (``[dryrun]``): one rank's HGEMV (three comm modes, nv 1 and
+64), compress and PCG iteration at p = 16 and the HGEMV at p = 32, 2^19
+rows a rank, walked on meta tensors with collective bytes equal to the
+models, no launch and no allocation on the card; and the LM path
+(``[lm]``): ``BatchedServer`` serving qwen3-0.6b at full width and depth
+in bfloat16 (8 prompts of 128 tokens, 32 new tokens; prefill, decode,
+tokens/s, peak memory), prefill + 1 decode against a prefill of the
+extended sequence (float32, 1e-3), the int8 cache's attention on the
+served layer-0 cache (3e-2), and the H^2 token mixer at S = 4096, D =
+1,024 on the kernels against the plain backend (1e-5), its compress on
+the kernels against the plain compress, 64 rows against the dense mix
+in float64 and its time beside the dense ``torch.matmul`` mix.
 Launch counts are reset just before each path and read just after (graph
 replays launch kernels without their wrappers: logged apart).
 Any failure raises; the last line is the device JSON only on success.
@@ -131,6 +150,7 @@ It needs a CUDA card: without one it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import statistics
@@ -180,6 +200,19 @@ class Timer:
         self.torch = torch
         self.flush_buf = torch.empty(64 << 20, dtype=torch.float32,
                                      device="cuda")
+
+    def once(self, fn) -> tuple:
+        """(ms, result) of one cold call of ``fn`` (L2 flushed)."""
+        torch = self.torch
+        torch.cuda.synchronize()
+        self.flush_buf.zero_()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = fn()
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b), out
 
     def ms(self, fn, reps: int = 10, warmup: int = 2) -> float:
         torch = self.torch
@@ -645,11 +678,11 @@ def kernel_phase(torch, timer, results: dict) -> None:
         general_ms=timer.ms(
             lambda: kbs.batched_svd(rl, want_vt=False, route="general"),
             reps=3),
-        # cuSOLVER takes ~15 s per call here: one timed call each, warmed
-        # by svd_case's own call of the plain version
-        plain_ms=timer.ms(lambda: ref.batched_svd(rl), reps=1, warmup=0),
-        library_ms=timer.ms(lambda: torch.linalg.svd(rl, full_matrices=False),
-                            reps=1, warmup=0))
+        # cuSOLVER takes ~15 s per call here: one timed call, warmed by
+        # svd_case's own call of the plain version, which is
+        # torch.linalg.svd itself, so the call gives both numbers
+        plain_ms=timer.ms(lambda: ref.batched_svd(rl), reps=1, warmup=0))
+    results["batched_svd"]["library_ms"] = results["batched_svd"]["plain_ms"]
     # ---- halo_pack: edge cases here; timed at the distributed phase's
     # largest launch, once the partition exists (dist_phase) ----
     results["halo_pack"] = dict(max_abs_err=halo_pack_cases(torch, rnd))
@@ -758,13 +791,16 @@ def compress_launch_shapes(torch, shape, data) -> dict:
                                                  backend="cuda"))[0]
 
 
-def compress_shape_timings(torch, timer, shape, data) -> list:
+def compress_shape_timings(torch, timer, shape, data, known: dict) -> list:
     """Each distinct QR / SVD shape one warm compress launches: its
     launches, the planned route's ms, the general (first) kernel's ms, the
     bound, the plain version's ms and ``torch.linalg``'s ms (one call each;
     cuSOLVER is slow here), on ``[kernel]`` lines.  An SVD's time includes
     its QR polish where its route polishes.  The plain SVD is
-    ``torch.linalg.svd`` itself, so one call gives both of its numbers."""
+    ``torch.linalg.svd`` itself, so one call gives both of its numbers.
+    ``known``: ``(entry, shape) -> (plain ms, library ms)`` of the shapes
+    the kernel phase timed already (the leaf QR and SVD), not timed
+    again."""
     from repro_torch.kernels import batched_qr as kbq
     from repro_torch.kernels import batched_svd as kbs
     from repro_torch.kernels import ref
@@ -802,8 +838,11 @@ def compress_shape_timings(torch, timer, shape, data) -> list:
         ms = timer.ms(lambda: run(route), reps=5)
         gms = timer.ms(lambda: run("general"), reps=3) if route != "general" \
             else ms
-        lms = timer.ms(lib, reps=1, warmup=0)
-        pms = timer.ms(plain, reps=1, warmup=0) if plain else lms
+        if (entry, shp) in known:
+            pms, lms = known[(entry, shp)]
+        else:
+            lms = timer.ms(lib, reps=1, warmup=0)
+            pms = timer.ms(plain, reps=1, warmup=0) if plain else lms
         tot_new += count * ms
         tot_gen += count * gms
         row = dict(entry=entry, shape=list(shp), launches=count, route=route,
@@ -2758,7 +2797,6 @@ def sketch_shape_checks(torch, timer, seen: dict, inputs: dict) -> list:
                 err = max(err, rel(u * sv[:, None, :] @ u.transpose(-1, -2),
                                    up * sp[:, None, :] @
                                    up.transpose(-1, -2)))
-            f32 = rel(ref.batched_svd(a)[1], sp)
             run = lambda rt: kbs.batched_svd(a, route=rt, want_vt=False,
                                              polish=polish)
             lib = lambda: torch.linalg.svdvals(a) if not polish else \
@@ -2770,14 +2808,18 @@ def sketch_shape_checks(torch, timer, seen: dict, inputs: dict) -> list:
         gms = timer.ms(lambda: run("general"), reps=2) \
             if route != "general" and fits_general else \
             (ms if route == "general" else None)
-        lms = timer.ms(lib, reps=1, warmup=0)
+        lms, got = timer.once(lib)
+        if entry not in ("qr", "qr_r"):
+            # cuSOLVER's float32 sigma: the library call just timed
+            # (torch.linalg.svd, the plain version, or svdvals)
+            f32 = rel(got[1] if polish else got, sp)
         row = dict(entry=entry, shape=list(shp), launches=count, route=route,
                    rel_err=err, f32_plain_sigma_err=f32, ms=ms,
                    general_ms=gms,
                    bound_ms=bnd, bound_by=by, library_ms=lms)
         rows.append(row)
         gtxt = f"{gms:.4f}" if gms is not None else "does not fit"
-        ftxt = f" (float64; float32 plain sigma off by {f32:.2e})" \
+        ftxt = f" (float64; float32 torch.linalg sigma off by {f32:.2e})" \
             if f32 is not None else ""
         log(f"[kernel] sketch shape {entry} {list(shp)}: launches {count}, "
             f"route {route}, vs plain {err:.3e}{ftxt} (tol {SHAPE_TOL:g}), "
@@ -3274,6 +3316,7 @@ SERVE_PANEL = 16               # coupling_mv's warp16 route
 SERVE_RESTART = 100
 SERVE_MAX_SEGMENTS = 30        # a request's budget: 3,000 iterations
 SERVE_DRILL_COST = 0.02        # virtual seconds per dispatch in the drills
+SERVE_DRILL_REQUESTS = 16      # the drills' depth, cut from 32 for the time limit
 SERVE_DRILL_PLAN = dict(device_loss_at={1: "device lost"}, nan_at={3},
                         straggle_at={5: 0.5})
 SERVE_RECOMPUTE_TOL = 10 * SERVE_TOL   # recomputed with the plain HGEMV
@@ -3491,7 +3534,8 @@ def serve_phase(torch, device: str = "cuda", log2n: int = 20,
         drills = [drill_service(ServiceFaultPlan(
             **{k: dict(v) if isinstance(v, dict) else set(v)
                for k, v in SERVE_DRILL_PLAN.items()})).serve(
-            load(rate).requests(), key, build) for _ in range(2)]
+            load(rate, SERVE_DRILL_REQUESTS).requests(), key, build)
+            for _ in range(2)]
         md = drills[0].metrics
         log(f"[serve] drill ({SERVE_DRILL_PLAN}, dispatch_cost "
             f"{SERVE_DRILL_COST}): completed {md['completed']}, dispatches "
@@ -3502,7 +3546,7 @@ def serve_phase(torch, device: str = "cuda", log2n: int = 20,
             f"{md['breaker_recoveries']}, p50 "
             f"{drills[0].percentile(50):.3f} s, p99 "
             f"{drills[0].percentile(99):.3f} s (virtual)")
-        require(md["completed"] == SERVE_REQUESTS and
+        require(md["completed"] == SERVE_DRILL_REQUESTS and
                 all(c.status == "ok"
                     for c in drills[0].completions.values()),
                 "a drill request did not end ok")
@@ -3597,8 +3641,10 @@ def serve_phase(torch, device: str = "cuda", log2n: int = 20,
 
         # every ok answer, recomputed with the plain HGEMV
         checks = {"benchmark": (reqs, bench.completions)}
+        drill_bs = {r.rid: r.b for r in
+                    load(rate, SERVE_DRILL_REQUESTS).requests()}
         for i, rep in enumerate(drills):
-            checks[f"drill{i}"] = (reqs, rep.completions)
+            checks[f"drill{i}"] = (drill_bs, rep.completions)
         checks["threaded"] = ({i: tb[i] for i in tdone}, tdone)
         worst = {}
         for what, (bs, done) in checks.items():
@@ -3673,7 +3719,7 @@ OBS_SOLVE_STEPS = 10            # graph-replayed [solve] iterations traced
 # iteration each, in both comm modes; 3 rounds (and a warmup round) keep
 # the profile near a minute at ~0.2-0.5 s an eager iteration
 OBS_PROFILE = dict(modes=("halo-plan", "allgather"), tol=1e-8, maxiter=10,
-                   reps=3, loop_m=1)
+                   reps=2, loop_m=1)
 # device work in a profiler trace
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
@@ -4052,6 +4098,7 @@ def dserve_phase(torch, keep: dict, device: str = "cuda") -> dict:
         [{w: local_shard(dshapes[w], parts[w][1], r) for w in parts}
          for r in range(DIST_P)], device)
     t_ranks = time.perf_counter() - t0
+    cut_part = parts["cut"][1]
     del parts
     if on_card:
         torch.cuda.ipc_collect()
@@ -4113,12 +4160,537 @@ def dserve_phase(torch, keep: dict, device: str = "cuda") -> dict:
     for res in ranks:
         for k, v in res["launches"].items():
             launches[k] += v
+    # [tserve] serves the cut operator again
+    keep.clear()
+    keep.update(cut=(shapes["cut"], datas["cut"], dshapes["cut"],
+                     geoms["cut"], cut_part))
     t_phase = time.perf_counter() - t_phase
     log(f"[dserve] launches (ranks and graph replays included): "
         f"{launches}; partition {t_part:.2f} s, ranks {t_ranks:.1f} s; "
         f"phase took {t_phase:.1f} s")
     return dict(episodes=out, launches=launches, partition_s=t_part,
                 phase_s=t_phase)
+
+
+# ---------------------------------------------------------------------------
+# tserve phase: the threaded front-end on distributed keys
+# ---------------------------------------------------------------------------
+
+TSERVE_SUBMITTERS = 4
+TSERVE_QUEUE = 8
+# More requests than the panel and the queue hold together: while the
+# first panel solves (seconds) the queue fills and the next submission is
+# refused, whenever the worker's first boundary admits.  At 16 the worker
+# could admit a full panel first and the queue take the rest.
+TSERVE_REQUESTS = {"halo-plan": 24,
+                   "allgather": DSERVE_PANEL + TSERVE_QUEUE + 1}
+TSERVE_MODES = ("halo-plan", "allgather")
+TSERVE_RESTART = 250            # a request's ~200 iterations in 1 dispatch
+TSERVE_JOIN_S = 300
+
+
+def _tserve_rhs(n: int):
+    import numpy as np
+    rng = np.random.default_rng(SERVE_SEED)
+    return rng.standard_normal((max(TSERVE_REQUESTS.values()), n)).astype(
+        np.float32)
+
+
+def _tserve_rank_work(rank: int, shard, on_card: bool, shape, dshape,
+                      geom) -> dict:
+    """One rank of ``[tserve]``: a ``ThreadedSolverService`` per key over
+    a process group of its own (made on every rank before the worker
+    starts; the main thread keeps the world group).  Rank 0 is the front
+    end: 4 submitter threads send 24 right-hand sides (17 on the
+    allgather key) into a queue of 8, backing off on ``QueueFull``; every
+    rank closes its service.  Returns per key the metrics, the boundaries,
+    the header broadcast's and the rows' scatter's bytes, whether the
+    worker ended, and on rank 0 the answers and the latencies; and the
+    rank's launches."""
+    import threading
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.comm import Comm
+    from repro_torch.kernels import ops
+    from repro_torch.serving import (OperatorCache, OperatorKey, QueueFull,
+                                     SolverService, ThreadedSolverService)
+    from repro_torch.solvers import krylov
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    krylov.set_guards_enabled(False)          # as [serve] and [dserve]
+    group = dist.new_group(list(range(dist.get_world_size())))
+    comm = Comm(group)
+    ops.reset_launch_counts()
+    dev = shard.u_leaf.device
+    rhs = _tserve_rhs(shape.n) if rank == 0 else None
+    out = {}
+    for mode in TSERVE_MODES:
+        comm.reset_counts()
+        svc = SolverService(OperatorCache(max_bytes=1 << 34),
+                            panel_width=DSERVE_PANEL,
+                            restart_every=TSERVE_RESTART,
+                            max_segments=SERVE_MAX_SEGMENTS,
+                            queue_capacity=TSERVE_QUEUE, tol=SERVE_TOL,
+                            device=dev, backend="cuda", comm=comm)
+        key = OperatorKey(geometry=geom, kernel=("exponential", 0.1),
+                          tol=SERVE_COMPRESS_TOL, comm=mode)
+        dist.barrier()
+        t0 = time.perf_counter()
+        tsvc = ThreadedSolverService(svc, key, lambda: (
+            shape, shard, {"dshape": dshape}))
+        ep = {}
+        if rank == 0:
+            rid_of, fulls, lock = {}, [0], threading.Lock()
+            go = threading.Barrier(TSERVE_SUBMITTERS)
+
+            def submitter(w):
+                go.wait()
+                for i in range(w, TSERVE_REQUESTS[mode], TSERVE_SUBMITTERS):
+                    while True:
+                        try:
+                            rid = tsvc.submit(rhs[i])
+                            break
+                        except QueueFull:
+                            with lock:
+                                fulls[0] += 1
+                            time.sleep(0.02)
+                    with lock:
+                        rid_of[rid] = i
+            threads = [threading.Thread(target=submitter, args=(w,))
+                       for w in range(TSERVE_SUBMITTERS)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(TSERVE_JOIN_S)
+            done = {rid: tsvc.result(rid, timeout=TSERVE_JOIN_S)
+                    for rid in sorted(rid_of)}
+            ep.update(
+                rids=sorted(rid_of), fulls=fulls[0],
+                status={rid_of[r]: c.status for r, c in done.items()},
+                x={rid_of[r]: c.x.cpu() for r, c in done.items()},
+                latency=sorted(c.latency for c in done.values()),
+                iters=sorted(c.iters for c in done.values()))
+        tsvc.close(TSERVE_JOIN_S)
+        ep.update(wall_s=time.perf_counter() - t0,
+                  closed=not tsvc._thread.is_alive(),
+                  metrics=dict(tsvc.metrics), boundaries=tsvc.boundaries,
+                  bcast_bytes=comm.recv_by_kind.get("broadcast", 0),
+                  scatter_bytes=comm.recv_by_kind.get("scatter", 0),
+                  recv=dict(comm.recv_by_kind))
+        out[mode] = ep
+    out["launches"] = ops.launch_counts()
+    krylov.set_guards_enabled(True)
+    return out
+
+
+def tserve_phase(torch, keep: dict, device: str = "cuda") -> dict:
+    """``ThreadedSolverService`` on distributed keys (``halo-plan`` and
+    ``allgather``): the ``[dserve]`` operator cut to N = 2^16, partitioned
+    over ``DIST_P`` gloo ranks, one threaded service per rank in lockstep,
+    rank 0 the front end (4 submitter threads, 24 requests, 17 on the
+    allgather key, a queue of 8: ``QueueFull`` exercised).  Requires every
+    rid completed exactly once, no duplicate, every answer ``ok`` and
+    within 10 x tol recomputed on one device with the plain HGEMV, the
+    metrics equal on every rank, each rank's received right-hand-side
+    bytes equal to its own rows and ``close()`` returned on every rank."""
+    import numpy as np
+    import types
+
+    from repro_torch.core.dist import local_shard
+
+    t_phase = time.perf_counter()
+    shape, data, dshape, geom, ddata = keep["cut"]
+    ranks = run_ranks(torch, _tserve_rank_work, (shape, dshape, geom),
+                      [local_shard(dshape, ddata, r) for r in range(DIST_P)],
+                      device)
+    if device == "cuda":
+        torch.cuda.ipc_collect()
+    rhs = _tserve_rhs(shape.n)
+    out = {}
+    for mode in TSERVE_MODES:
+        ep0 = ranks[0][mode]
+        m = ep0["metrics"]
+        for r, res in enumerate(ranks):
+            require(res[mode]["closed"],
+                    f"[tserve] {mode}: rank {r}'s worker did not end at "
+                    f"close()")
+            require(res[mode]["metrics"] == m,
+                    f"[tserve] {mode}: rank {r}'s metrics "
+                    f"{res[mode]['metrics']} differ from rank 0's {m}")
+        n_req = TSERVE_REQUESTS[mode]
+        require(len(set(ep0["rids"])) == n_req and
+                m["submitted"] == m["completed"] == n_req and
+                m["duplicates"] == 0 and m["timeouts"] == 0,
+                f"[tserve] {mode}: not every rid completed exactly once: {m}")
+        require(set(ep0["status"].values()) == {"ok"},
+                f"[tserve] {mode}: statuses {set(ep0['status'].values())}")
+        require(ep0["fulls"] > 0, f"[tserve] {mode}: the queue of "
+                f"{TSERVE_QUEUE} never refused a submission")
+        done = {i: types.SimpleNamespace(x=x.to(device))
+                for i, x in ep0["x"].items()}
+        rel = _serve_recompute(torch, shape, data,
+                               {i: rhs[i] for i in done}, done)
+        worst = max(rel.values())
+        require(worst <= SERVE_RECOMPUTE_TOL,
+                f"[tserve] {mode}: recomputed residual {worst:.3e}")
+        # each rank receives its own rows of each admitted request, no more
+        own_rows = n_req * (shape.n // DIST_P) * 4
+        for r, res in enumerate(ranks[1:], 1):
+            require(res[mode]["scatter_bytes"] == own_rows,
+                    f"[tserve] {mode}: rank {r} received "
+                    f"{res[mode]['scatter_bytes']} bytes of right-hand "
+                    f"sides, its rows are {own_rows}")
+        lat = np.asarray(ep0["latency"])
+        per_boundary = ranks[1][mode]["bcast_bytes"] / max(
+            ranks[1][mode]["boundaries"], 1)
+        log(f"[tserve] {mode}: {DIST_P} ranks, {n_req} requests from "
+            f"{TSERVE_SUBMITTERS} submitters into a queue of "
+            f"{TSERVE_QUEUE} (QueueFull {ep0['fulls']} times): metrics {m} "
+            f"equal on every rank; iterations {ep0['iters'][0]}-"
+            f"{ep0['iters'][-1]}; wall latency p50 "
+            f"{np.percentile(lat, 50):.3f} s, p99 {np.percentile(lat, 99):.3f}"
+            f" s; {ranks[1][mode]['boundaries']} boundaries, the decision "
+            f"header {per_boundary:.0f} bytes per boundary on rank 1, the "
+            f"admitted rows {own_rows} bytes in all (= {n_req} x n/p x 4) "
+            f"(received by kind {ranks[1][mode]['recv']}); recomputed "
+            f"||b - (x + A x)|| / ||b|| max {worst:.3e} (tol "
+            f"{SERVE_RECOMPUTE_TOL:g}); close() returned on every rank; wall "
+            f"{ep0['wall_s']:.1f} s")
+        out[mode] = dict(metrics=m, fulls=ep0["fulls"],
+                         p50_s=float(np.percentile(lat, 50)),
+                         p99_s=float(np.percentile(lat, 99)),
+                         boundaries=ranks[1][mode]["boundaries"],
+                         bcast_bytes_per_boundary=per_boundary,
+                         scatter_bytes=own_rows,
+                         recomputed_max=worst, wall_s=ep0["wall_s"])
+    launches = {k: sum(res["launches"][k] for res in ranks)
+                for k in ranks[0]["launches"]}
+    # the distributed HGEMV's products run as plain torch (ROADMAP Queue 2
+    # item 6b): its kernel is the exchange's pack
+    require(launches["halo_pack"] > 0,
+            "halo_pack was not launched on the threaded serve path")
+    t_phase = time.perf_counter() - t_phase
+    log(f"[tserve] launches (every rank): {launches}; phase took "
+        f"{t_phase:.1f} s")
+    return dict(keys=out, launches=launches, phase_s=t_phase)
+
+
+# ---------------------------------------------------------------------------
+# dryrun phase: the H^2 dry run at the paper's per-device load
+# ---------------------------------------------------------------------------
+
+DRY_ROWS_LOG2 = 19
+DRY_DEPTH_PROBE = 9
+
+
+def dryrun_phase(torch, device: str = "cuda") -> dict:
+    """``launch.dryrun_h2`` on the production layouts: ``matvec1`` (all
+    three comm modes), ``matvec64``, ``compress`` and ``pcg`` in 2D on the
+    single pod (p = 16), ``matvec1`` on the multi-pod layout (p = 32),
+    2^19 rows per rank, one rank's program walked on meta tensors.
+    Requires the collective bytes = ``matvec_comm_bytes`` (the Krylov
+    model plus the prologue for ``pcg``) exactly, no kernel launch and no
+    memory allocated on the card."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun_h2 as dry
+    from repro_torch.launch.mesh import production_layout
+
+    t_phase = time.perf_counter()
+    ops.reset_launch_counts()
+    on_card = device == "cuda"
+    mem0 = torch.cuda.memory_allocated() if on_card else 0
+    t0 = time.perf_counter()
+    stats = dry.measured_structure_stats(2, DRY_DEPTH_PROBE)
+    t_stats = time.perf_counter() - t0
+    cells = [(False, c, mode) for c in ("matvec1", "matvec64")
+             for mode in dry.MATVEC_MODES] + \
+        [(False, "compress", "halo-plan"), (False, "pcg", "halo-plan"),
+         (True, "matvec1", "halo-plan")]
+    out = []
+    for multi_pod, cell, mode in cells:
+        kind, nv = dry.CELLS[cell]
+        r = dry.dry_cell(kind, 2, nv, production_layout(multi_pod=multi_pod),
+                         DRY_ROWS_LOG2, mode=mode, stats=stats)
+        coll = sum(r["collectives"].values())
+        if "model_comm_bytes" in r:
+            require(coll == r["model_comm_bytes"],
+                    f"[dryrun] {r['cell']} {mode} p={r['p']}: collective "
+                    f"bytes {coll} != model {r['model_comm_bytes']}")
+        log(f"[dryrun] {r['cell']} {mode if kind != 'compress' else ''} "
+            f"p={r['p']} depth {r['depth']} (2^{DRY_ROWS_LOG2} rows a rank): "
+            f"flops {r['flops']:.4e} (matmul {r['matmul_flops']:.4e}), "
+            f"bytes {r['bytes']:.4e}, collective bytes {coll} by kind "
+            f"{r['collectives']} (model {r.get('model_comm_bytes')}), "
+            f"resident {r['resident_bytes']} bytes, walk {r['walk_s']:.3f} s")
+        out.append(r)
+    launches = ops.launch_counts()
+    require(not any(launches.values()),
+            f"[dryrun] the walk launched kernels: {launches}")
+    require(not on_card or torch.cuda.memory_allocated() == mem0,
+            "[dryrun] the walk allocated memory on the card")
+    t_phase = time.perf_counter() - t_phase
+    log(f"[dryrun] probe stats (depth {DRY_DEPTH_PROBE}) {t_stats:.2f} s, "
+        f"C_sp {stats['Csp']}; no launch, no allocation on the card; phase "
+        f"took {t_phase:.1f} s")
+    return dict(cells=[{k: r[k] for k in ("cell", "comm", "p", "depth",
+                                          "flops", "matmul_flops", "bytes",
+                                          "collectives", "resident_bytes",
+                                          "walk_s")} for r in out],
+                phase_s=t_phase)
+
+
+# ---------------------------------------------------------------------------
+# lm phase: qwen3-0.6b at full width and depth, the H^2 mixer, int8 cache
+# ---------------------------------------------------------------------------
+
+LM_ARCH = "qwen3-0.6b"
+LM_SEED = 0
+LM_REQUESTS = 8
+LM_PROMPT = 128
+LM_MAX_LEN = 256
+LM_NEW = 32
+LM_CONSIST_TOL = 1e-3           # prefill + 1 decode vs extended, float32
+LM_KVQ_TOL = 3e-2               # int8 cache attention vs full precision
+MIXER_S = 4096
+MIXER_D = 1024
+MIXER_PLAIN_TOL = 1e-5          # backend="cuda" vs backend="torch"
+MIXER_COMPRESS_TOL = 1e-3       # operator of the kernels' vs plain compress
+MIXER_DENSE_TOL = 2e-2          # 64 rows vs the dense mix (the reference's)
+MIXER_ROWS = 64
+
+
+def _lm_consistency(torch, cfg, params, toks) -> float:
+    """Prefill + 1 decode step against a prefill of the extended sequence:
+    relative difference of the logits."""
+    from repro_torch.models import api
+    s = toks.shape[1]
+    with torch.no_grad():
+        l1, cache = api.prefill(cfg, params, {"tokens": toks},
+                                cache_len=s + 4)
+        nxt = l1.argmax(-1)[:, None]
+        l2, _ = api.decode_step(cfg, params, {"tokens": nxt}, cache,
+                                torch.tensor(s, device=toks.device))
+        full, _ = api.prefill(cfg, params,
+                              {"tokens": torch.cat([toks, nxt], dim=1)})
+    return float((l2.double() - full.double()).norm() / full.double().norm())
+
+
+def lm_phase(torch, timer, device: str = "cuda", reduced: bool = False,
+             mixer_s: int = MIXER_S, mixer_d: int = MIXER_D) -> dict:
+    """The LM serving path: ``BatchedServer`` serves ``qwen3-0.6b`` at full
+    width and depth in bfloat16 (weights from the port's seeded init): 8
+    prompts of 128 tokens, ``max_len`` 256, 32 new tokens; prefill + 1
+    decode against a prefill of the extended sequence (float32 at full
+    width: 1e-3; bfloat16 printed); the int8 cache's attention on the
+    served run's layer-0 cache (3e-2); the H^2 token mixer at S = 4096,
+    B = 1, D = 1024 with its structure compressed on the kernels, the
+    mixed output on the kernels against the plain backend (1e-5), the
+    kernels' compressed operator against the plain compress's, 64 rows
+    against the dense kernel mix in float64, and its time beside the
+    dense ``torch.matmul`` mix.  ``reduced``, ``mixer_s`` and ``mixer_d``
+    shrink it for a rehearsal on the CPU."""
+    import numpy as np
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import BatchedServer, make_requests
+    from repro_torch.models import api
+    from repro_torch.models.h2mixer import (h2mixer_apply, h2mixer_params,
+                                            h2mixer_structure)
+    from repro_torch.models.layers import decode_attention, rms_norm
+    from repro_torch.models.transformer import tree_map
+    from repro_torch.serving import kv_quant
+
+    t_phase = time.perf_counter()
+    on_card = device == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    cfg = get_config(LM_ARCH)
+    if reduced:
+        cfg = cfg.reduced()
+    else:
+        require((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                 cfg.hd, cfg.d_ff, cfg.vocab, cfg.param_dtype) ==
+                (28, 1024, 16, 8, 128, 3072, 151936, "bfloat16"),
+                f"[lm] {LM_ARCH} is not the full config: {cfg}")
+    t0 = time.perf_counter()
+    params = api.init_params(cfg, LM_SEED, device)
+    sync()
+    t_init = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    server = BatchedServer(cfg, params, batch_size=LM_REQUESTS,
+                           max_len=LM_MAX_LEN, device=device)
+    reqs = make_requests(cfg, LM_REQUESTS, LM_PROMPT, LM_NEW, LM_SEED)
+    server.serve(make_requests(cfg, LM_REQUESTS, LM_PROMPT, 2, LM_SEED))
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    sync()
+    t0 = time.perf_counter()
+    out = server.serve(reqs)
+    sync()
+    t_serve = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    batch, s = server._batchify(reqs)
+    with torch.no_grad():
+        prefill_ms = timer.ms(lambda: server.prefill(batch), reps=3,
+                              warmup=1) if on_card else float("nan")
+        _, cache = server.prefill(batch)
+    decode_ms = (t_serve * 1e3 - prefill_ms) / LM_NEW
+    idle = None
+    if on_card:                     # where one decode step's time goes
+        tok0 = torch.zeros((LM_REQUESTS, 1), dtype=torch.long,
+                           device=device)
+        pos0 = torch.tensor(s, device=device)
+        with torch.no_grad():
+            idle = device_idle_share(
+                torch, lambda: server.decode({"tokens": tok0}, cache, pos0),
+                OBS_DIR / "lm_decode_trace.json", reps=5)
+    toks = sum(len(v) for v in out.values())
+    require(sorted(out) == list(range(LM_REQUESTS)) and
+            all(len(v) == LM_NEW for v in out.values()) and
+            all(0 <= t < cfg.vocab for v in out.values() for t in v),
+            "[lm] the server did not return 32 tokens per request")
+    log(f"[lm] {LM_ARCH} {'reduced' if reduced else 'full width and depth'} ({cfg.n_layers} layers, d "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, dh {cfg.hd}, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab}, bfloat16, {n_params} "
+        f"parameters, seeded init {t_init:.2f} s): {LM_REQUESTS} requests x "
+        f"{LM_PROMPT}-token prompts, max_len {LM_MAX_LEN}, {LM_NEW} new "
+        f"tokens: {toks} tokens in {t_serve:.3f} s ({toks / t_serve:.1f} "
+        f"tokens/s); prefill {prefill_ms:.3f} ms (CUDA events, L2 flushed), "
+        f"decode {decode_ms:.3f} ms a token (serve wall less prefill); peak "
+        f"memory {peak} bytes; request 0's first tokens {out[0][:8]}")
+    if idle is not None:
+        log(f"[lm] one decode step traced: {idle['device_ops']} device "
+            f"operations, busy {idle['busy_us']:.0f} us of the untraced "
+            f"{idle['untraced_us']:.0f} us: idle share "
+            f"{idle['idle_share_untraced']:.3f} (traced window "
+            f"{idle['window_us']:.0f} us, {idle['idle_share']:.3f}); trace "
+            f"{idle['trace']}")
+
+    # prefill + 1 decode vs the extended prefill
+    head = torch.from_numpy(np.stack([r.prompt for r in reqs[:2]])).to(
+        device).long()
+    bf16_gap = _lm_consistency(torch, cfg, params, head)
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                act_dtype="float32")
+    p32 = tree_map(lambda t: t.float(), params)
+    f32_gap = _lm_consistency(torch, cfg32, p32, head)
+    del p32
+    log(f"[lm] prefill + 1 decode vs a prefill of the extended sequence "
+        f"(2 x {LM_PROMPT} tokens, logits): float32 {f32_gap:.3e} (tol "
+        f"{LM_CONSIST_TOL:g}), bfloat16 {bf16_gap:.3e}")
+    require(f32_gap <= LM_CONSIST_TOL,
+            f"[lm] float32 prefill/decode gap {f32_gap:.3e}")
+
+    # the int8 cache on the served run's layer-0 cache
+    k0, v0 = cache["k"][0].float(), cache["v"][0].float()
+    gen = torch.Generator(device=device).manual_seed(LM_SEED)
+    q = torch.randn((LM_REQUESTS, 1, cfg.n_heads, cfg.hd), generator=gen,
+                    device=device)
+    mask = (torch.arange(LM_MAX_LEN, device=device) < s)[None].expand(
+        LM_REQUESTS, LM_MAX_LEN)
+    ref = decode_attention(q, k0, v0, mask)
+    got = kv_quant.decode_attention_q(q, kv_quant.quantize(k0),
+                                      kv_quant.quantize(v0), mask)
+    kvq_err = float((got - ref).double().norm() / ref.double().norm())
+    full_b, quant_b = kv_quant.cache_bytes(
+        (LM_REQUESTS, LM_MAX_LEN, cfg.n_kv_heads, cfg.hd))
+    per_model = 2 * cfg.n_layers
+    log(f"[lm] int8 cache: decode_attention_q vs decode_attention on the "
+        f"served layer-0 cache [{LM_REQUESTS}, {LM_MAX_LEN}, "
+        f"{cfg.n_kv_heads}, {cfg.hd}] ({s} positions valid): {kvq_err:.3e} "
+        f"(tol {LM_KVQ_TOL:g}); cache_bytes bfloat16 {full_b * per_model} "
+        f"vs int8 + scales {quant_b * per_model} bytes (K and V, "
+        f"{cfg.n_layers} layers)")
+    require(kvq_err <= LM_KVQ_TOL, f"[lm] int8 cache attention {kvq_err}")
+    del server, params, cache, k0, v0
+
+    # the H^2 token mixer at S = 4096, B = 1, D = 1024 (nv = 1,024)
+    start = tally_start()
+    t0 = time.perf_counter()
+    shape, data = h2mixer_structure(mixer_s, device=device,
+                                    backend="cuda" if on_card else "torch")
+    sync()
+    t_struct = time.perf_counter() - t0
+    mcfg = dataclasses.replace(cfg, param_dtype="float32",
+                               act_dtype="float32")
+    mcfg = dataclasses.replace(mcfg, d_model=mixer_d)
+    mp = h2mixer_params(mcfg, gen, torch.float32)
+    mp["gate"] = torch.rand(mixer_d, generator=gen, device=device) + 0.5
+    x = torch.randn((1, mixer_s, mixer_d), generator=gen, device=device)
+    with torch.no_grad():
+        y = h2mixer_apply(mcfg, mp, x, shape, data, backend="cuda")
+        sync()
+    launches, routes, _ = launches_that_ran(start)
+    y_plain = h2mixer_apply(mcfg, mp, x, shape, data, backend="torch")
+    mix_err = float(((y - x) - (y_plain - x)).double().norm() /
+                    (y_plain - x).double().norm())
+    require(mix_err <= MIXER_PLAIN_TOL,
+            f"[lm] mixer on the kernels vs the plain backend {mix_err:.3e}")
+    # the structure's compress on the kernels vs on the plain backend
+    pshape, pdata = h2mixer_structure(mixer_s, device=device,
+                                      backend="torch")
+    from repro_torch.core.matvec import h2_matvec
+    probe = torch.randn((mixer_s, 16), generator=gen, device=device)
+    ya = h2_matvec(shape, data, probe, backend="torch")
+    yb = h2_matvec(pshape, pdata, probe, backend="torch")
+    comp_err = float((ya - yb).double().norm() / yb.double().norm())
+    require(comp_err <= MIXER_COMPRESS_TOL,
+            f"[lm] mixer compress on the kernels vs plain {comp_err:.3e} "
+            f"(ranks {shape.ranks} vs {pshape.ranks})")
+    del pdata
+    # 64 rows against the dense kernel mix, float64
+    h = (rms_norm(x, mp["norm"], mcfg.norm_eps) @ mp["w_in"])[0].double()
+    rows = torch.randperm(mixer_s, generator=gen, device=device)[:MIXER_ROWS]
+    pos = torch.arange(mixer_s, device=device, dtype=torch.float64) / mixer_s
+    a_rows = torch.exp(-(pos[rows][:, None] - pos[None]).abs() / 0.05)
+    want = a_rows @ h
+    hv = h.float()
+    mixed = h2_matvec(shape, data, hv, backend="cuda")
+    dense_err = float((mixed[rows].double() - want).norm() / want.norm())
+    require(dense_err <= MIXER_DENSE_TOL,
+            f"[lm] mixer rows vs the dense kernel mix {dense_err:.3e}")
+    mixer_ms = timer.ms(lambda: h2mixer_apply(mcfg, mp, x, shape, data,
+                                              backend="cuda"), reps=5) \
+        if on_card else float("nan")
+    a_dense = torch.exp(-(pos[:, None] - pos[None]).abs() / 0.05).float()
+    dense_ms = timer.ms(lambda: torch.matmul(a_dense, hv), reps=5) \
+        if on_card else float("nan")
+    del a_dense
+    log(f"[lm] H^2 mixer S={mixer_s} B=1 D={mixer_d} (nv {mixer_d}): "
+        f"structure (cheb_p 4, leaf 32, compress 1e-4 on the kernels) "
+        f"{t_struct:.2f} s, ranks {shape.ranks} (plain compress "
+        f"{pshape.ranks}); kernels vs plain backend {mix_err:.3e} (tol "
+        f"{MIXER_PLAIN_TOL:g}); compressed operator vs the plain "
+        f"compress's {comp_err:.3e} (tol {MIXER_COMPRESS_TOL:g}); "
+        f"{MIXER_ROWS} rows vs the dense kernel mix (float64) "
+        f"{dense_err:.3e} (tol {MIXER_DENSE_TOL:g}, the H^2 error at "
+        f"cheb_p 4); mixer {mixer_ms:.3f} ms vs dense torch.matmul mix "
+        f"{dense_ms:.3f} ms (library yardstick, CUDA events, L2 flushed); "
+        f"launches {launches}, by route {routes}")
+    for name in ("batched_gemm", "coupling_mv", "batched_qr",
+                 "batched_svd"):
+        require(launches[name] > 0,
+                f"{name} was not launched on the LM mixer path")
+    t_phase = time.perf_counter() - t_phase
+    log(f"[lm] phase took {t_phase:.1f} s")
+    return dict(prefill_ms=prefill_ms, decode_ms=decode_ms,
+                decode_idle=idle,
+                tokens_per_s=toks / t_serve, peak_bytes=peak,
+                consistency_f32=f32_gap, consistency_bf16=bf16_gap,
+                kvq_err=kvq_err, cache_bytes=[full_b * per_model,
+                                              quant_b * per_model],
+                mixer_ms=mixer_ms, dense_mix_ms=dense_ms, mixer_err=mix_err,
+                mixer_dense_err=dense_err, mixer_compress_err=comp_err,
+                launches=launches, phase_s=t_phase)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
 
 
 def main() -> int:
@@ -4171,8 +4743,12 @@ def main() -> int:
     require(cm["general"] == 0 and
             sum(cm.values()) == main["launches"]["coupling_mv"],
             f"a main-path coupling_mv launch took the general route: {cm}")
-    shape_rows = compress_shape_timings(torch, timer, state["shape"],
-                                        state["data"])
+    shape_rows = compress_shape_timings(
+        torch, timer, state["shape"], state["data"],
+        {("qr", (16384, 64, 36)): (results["batched_qr"]["plain_ms"],
+                                   results["batched_qr"]["library_ms"]),
+         ("svd_u", (16384, 36, 36)): (results["batched_svd"]["plain_ms"],
+                                      results["batched_svd"]["library_ms"])})
     coupling_rows = {
         what: coupling_level_timings(torch, timer, state[s_], state[d_],
                                      state["x"], what)
@@ -4246,12 +4822,21 @@ def main() -> int:
     for name, n in serve["launches"].items():
         log(f"[kernels] {name}: {n} launches on the serve path")
     dserve = dserve_phase(torch, served)
-    del served
     for name, n in dserve["launches"].items():
         log(f"[kernels] {name}: {n} launches on the distributed serve path")
     for name in ("batched_gemm", "coupling_mv", "halo_pack"):
         require(dserve["launches"][name] > 0,
                 f"{name} was not launched on the distributed serve path")
+    tserve = tserve_phase(torch, served)
+    del served
+    for name, n in tserve["launches"].items():
+        log(f"[kernels] {name}: {n} launches on the threaded distributed "
+            f"serve path")
+    dry = dryrun_phase(torch)
+    lm = lm_phase(torch, timer)
+    for name, n in lm["launches"].items():
+        log(f"[kernels] {name}: {n} launches on the LM path (the H^2 "
+            f"mixer)")
     kernels = []
     for name in KERNELS:
         r = results[name]
@@ -4263,7 +4848,8 @@ def main() -> int:
                       solve["launches"][name] + dsolve["launches"][name] +
                       sketch["launches"][name] + guard_launches[name] +
                       chaos["launches"][name] + serve["launches"][name] +
-                      obs_launches[name] + dserve["launches"][name]),
+                      obs_launches[name] + dserve["launches"][name] +
+                      tserve["launches"][name] + lm["launches"][name]),
             max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"]))
@@ -4302,6 +4888,10 @@ def main() -> int:
                                if k != "launches"}},
                     "dserve": {k: v for k, v in dserve.items()
                                if k != "launches"},
+                    "tserve": {k: v for k, v in tserve.items()
+                               if k != "launches"},
+                    "dryrun": dry,
+                    "lm": {k: v for k, v in lm.items() if k != "launches"},
                     "kernel_detail": detail, "card": smi}))
     log(smi)
     log(json.dumps({"kernels": kernels}))

@@ -49,6 +49,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+import warnings
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -263,6 +264,16 @@ def make_preconditioner(prob: Dict, n_cycles: int = 2, nu: int = 3,
         return mg_precond_local(mg, arrs, r)
 
     return precond
+
+
+def pcg(apply_a, b, precond=None, tol=1e-8, maxiter=200):
+    """Deprecated shim over ``repro_torch.solvers.pcg`` -- returns the
+    legacy ``(x, iters, relres)`` tuple.  ``tol`` is relative to
+    ``||b||``."""
+    warnings.warn("apps.fractional.pcg is deprecated; use "
+                  "repro_torch.solvers.pcg", DeprecationWarning, stacklevel=2)
+    res = _pcg(apply_a, b, precond, tol=tol, maxiter=maxiter)
+    return res.x, int(res.iters), float(res.relres)
 
 
 def _setup(n: int, beta: float, h2_tol: float, use_precond: bool,

@@ -8,8 +8,10 @@ tiled=True)``), ``ppermute`` (``lax.ppermute``) and ``all_to_all`` on the
 0) -- each also in an async form that returns a ``Pending`` handle, so the
 §4.2 schedule can issue every exchange, compute, and only then wait; and
 the distributed solvers' ``psum`` (``lax.psum``), a sum in rank order that
-gives every rank the same bits.  ``rank`` is the counterpart of
-``lax.axis_index``.
+gives every rank the same bits; and ``broadcast`` and ``scatter``, with
+which the threaded solver service's rank 0 hands every rank its boundary
+decision and the admitted right-hand sides' rows.  ``rank`` is the
+counterpart of ``lax.axis_index``.
 
 The transport is chosen once, from the group's backend:
 
@@ -24,7 +26,8 @@ the wire (a rank's own slice of a gather or all-to-all is not counted),
 the quantity ``dist.matvec_comm_bytes`` models; ``recv_by_kind`` splits
 them by collective kind under the reference's HLO names (``all-gather``,
 ``collective-permute``, ``all-to-all``, and ``all-reduce`` for ``psum``),
-which ``perf.comm_cost`` reads.
+which ``perf.comm_cost`` reads; ``broadcast`` and ``scatter`` count under
+the kind their caller names.
 
 ``mesh_comm`` lays the world out as the reference's 2D ``(blk, nv)`` mesh
 (``make_dist_matvec(..., nv_axis=)``) and gives a rank its ``Comm`` over
@@ -194,6 +197,36 @@ class Comm:
         for q in range(1, self.p):
             out = out + parts[q]
         return out
+
+    def broadcast(self, t: torch.Tensor, src: int = 0,
+                  kind: str = "broadcast") -> torch.Tensor:
+        """Rank ``src``'s ``t`` on every rank (every rank passes a tensor
+        of the same shape and dtype; only ``src``'s values are read).  Its
+        bytes count under ``kind`` on the ranks that received them."""
+        wire = self._wire(t)
+        dist.broadcast(wire, self._world_rank(src), group=self.group)
+        if self.rank != src:
+            self._count(kind, t.numel() * t.element_size())
+        return self._finisher(t)(wire)
+
+    def scatter(self, t: Optional[torch.Tensor], shape: Tuple[int, ...],
+                like: torch.Tensor, src: int = 0, kind: str = "scatter"
+                ) -> torch.Tensor:
+        """Rank ``src``'s ``t[q]`` on rank ``q``: ``src`` passes ``t`` of
+        shape ``[p, *shape]``, the other ranks None.  Returns this rank's
+        part, of ``like``'s dtype and on its device.  Its bytes count under
+        ``kind`` on the ranks that received them."""
+        out = self._empty_wire(tuple(shape), like)
+        parts = None
+        if self.rank == src:
+            if tuple(t.shape) != (self.p, *shape):
+                raise ValueError(f"scatter of {tuple(t.shape)}, expected "
+                                 f"{(self.p, *shape)}")
+            parts = list(self._wire(t.to(like.dtype)).unbind(0))
+        dist.scatter(out, parts, src=self._world_rank(src), group=self.group)
+        if self.rank != src:
+            self._count(kind, out.numel() * out.element_size())
+        return self._finisher(like)(out)
 
     def barrier(self) -> None:
         dist.barrier(group=self.group)

@@ -143,14 +143,16 @@ def build_coupling_plan(depth: int, s_rows: Sequence[np.ndarray],
 
 
 def _take_fill(blocks: torch.Tensor, blk: torch.Tensor) -> torch.Tensor:
-    """``blocks[blk]`` with the sentinel ``blk == nb`` read as a zero block."""
+    """``blocks[blk]`` with the sentinel ``blk == nb`` read as a zero block
+    (a gather of clamped indices, the sentinel rows then zeroed: no
+    data-dependent shape, so it also runs on ``meta`` tensors)."""
     nb = blocks.shape[0]
+    if not nb:
+        return blocks.new_zeros((blk.shape[0],) + tuple(blocks.shape[1:]))
     idx = blk.long()
-    valid = idx < nb
-    g = blocks.new_zeros((idx.shape[0],) + tuple(blocks.shape[1:]))
-    if nb:
-        g[valid] = blocks[idx[valid]]
-    return g
+    g = blocks.index_select(0, idx.clamp(max=nb - 1))
+    valid = (idx < nb).reshape(-1, *([1] * (blocks.dim() - 1)))
+    return torch.where(valid, g, g.new_zeros(()))
 
 
 def marshal_blocks(blocks: torch.Tensor, blk: torch.Tensor, n_rows: int
@@ -211,7 +213,8 @@ def _tensors(data: H2Data) -> List[torch.Tensor]:
     out = [data.u_leaf, data.v_leaf, *data.e, *data.f, *data.s,
            *data.s_rows, *data.s_cols, data.dense, data.d_rows, data.d_cols]
     p = data.plan
-    out += [*p.sblk, *p.scol, *p.scnt, *p.cblk, p.dblk, p.dcol, p.dcnt]
+    if p is not None:
+        out += [*p.sblk, *p.scol, *p.scnt, *p.cblk, p.dblk, p.dcol, p.dcnt]
     if data.s_mar is not None:
         out += list(data.s_mar)
     if data.dense_mar is not None:
@@ -289,6 +292,41 @@ def zeros_data(shape: H2Shape, dtype=torch.float32, device="cuda") -> H2Data:
         dense=z(shape.dense_count, m, m),
         d_rows=z(shape.dense_count, dt=i32), d_cols=z(shape.dense_count, dt=i32),
         plan=plan, s_mar=s_mar, dense_mar=dense_mar)
+
+
+def abstract_data(shape: H2Shape, dtype=torch.float32, device="meta"
+                  ) -> H2Data:
+    """Stand-ins for every tensor of the operator ``shape`` describes, on
+    ``device`` (``meta`` by default: shapes and dtypes, nothing allocated)
+    -- the dry run's counterpart of the reference's ``ShapeDtypeStruct``
+    tree.  The shapes are those ``construct_h2`` gives; a symmetric shape
+    shares one basis tree, as a constructed operator does.  When the shape
+    carries the marshaling statics (``row_maxb``, ``col_maxb``,
+    ``dense_maxb``) the plan and the marshaled buffers are described too,
+    else they are None."""
+    if None not in (shape.row_maxb, shape.col_maxb, shape.dense_maxb):
+        data = zeros_data(shape, dtype, device)
+    else:
+        def z(*dims, dt=dtype):
+            return torch.zeros(dims, dtype=dt, device=device)
+        rng = range(shape.depth + 1)
+        m, k, nbs = shape.leaf_size, shape.ranks[shape.depth], \
+            shape.coupling_counts
+        e = [z(0, 0, 0)] + [z(shape.nodes(l), shape.ranks[l],
+                              shape.ranks[l - 1])
+                            for l in range(1, shape.depth + 1)]
+        data = H2Data(
+            u_leaf=z(shape.n_leaves, m, k), v_leaf=z(shape.n_leaves, m, k),
+            e=e, f=[z(*t.shape) for t in e],
+            s=[z(nbs[l], shape.ranks[l], shape.ranks[l]) for l in rng],
+            s_rows=[z(nbs[l], dt=torch.int32) for l in rng],
+            s_cols=[z(nbs[l], dt=torch.int32) for l in rng],
+            dense=z(shape.dense_count, m, m),
+            d_rows=z(shape.dense_count, dt=torch.int32),
+            d_cols=z(shape.dense_count, dt=torch.int32), plan=None)
+    if shape.symmetric:
+        data.v_leaf, data.f = data.u_leaf, list(data.e)
+    return data
 
 
 # ---------------------------------------------------------------------------

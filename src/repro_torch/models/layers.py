@@ -1,0 +1,286 @@
+"""Shared layer library: norms, RoPE, flash attention, decode attention,
+MLP -- the port of the reference's ``models/layers.py``.
+
+Pure functions over explicit parameter dicts of tensors.  The reference's
+sharding constraints have no counterpart yet: ``rules=`` or
+``model_size > 1`` raise ``NotImplementedError`` until
+``parallel/sharding.py`` is ported.  Initialisation draws from an explicit
+``torch.Generator`` (the reference's ``jax.random`` keys); a test that
+compares the two carries the reference's parameters across
+(``models.api.params_from_numpy``).
+
+``flash_attention`` is the reference's blocked online-softmax scan (not a
+TPU kernel) in plain PyTorch: the same block rules (a sequence that the
+block does not divide is one block), float32 scores, running max and
+denominator, and the ``-1e30`` mask.  No custom backward yet (training is
+a later slice).
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+MASK = -1e30
+
+
+def _no_rules(rules, model_size: int = 1) -> None:
+    if rules is not None or model_size > 1:
+        raise NotImplementedError(
+            "sharding rules / model_size > 1 need parallel/sharding.py, "
+            "which is not ported yet (ROADMAP Queue 1, the LM substrate's "
+            "training item)")
+
+
+# ---------------------------------------------------------------------------
+# norms / rope / init
+# ---------------------------------------------------------------------------
+
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6
+             ) -> torch.Tensor:
+    dt = x.dtype
+    x32 = x.float()
+    y = x32 * torch.rsqrt((x32 * x32).mean(-1, keepdim=True) + eps)
+    return (y * w.float()).to(dt)
+
+
+def layer_norm(x, w, b, eps: float = 1e-5):
+    dt = x.dtype
+    x32 = x.float()
+    mu = x32.mean(-1, keepdim=True)
+    var = ((x32 - mu) ** 2).mean(-1, keepdim=True)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return (y * w + b).to(dt)
+
+
+def rope_freqs(hd: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, hd, 2, dtype=torch.float32,
+                                         device=device) / hd))
+
+
+def apply_rope(x: torch.Tensor, pos: torch.Tensor, theta: float
+               ) -> torch.Tensor:
+    """x: [B, S, H, dh]; pos: [S] or [B, S].  Half-split rotation in
+    float32."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)                  # [hd/2]
+    ang = pos[..., None].float() * freqs                     # [..., S, hd/2]
+    if ang.dim() == 2:                                       # [S, hd/2]
+        ang = ang[None, :, None, :]
+    else:                                                    # [B, S, hd/2]
+        ang = ang[:, :, None, :]
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], -1)
+    return out.to(x.dtype)
+
+
+def dense_init(gen: torch.Generator, shape, dtype,
+               scale: Optional[float] = None) -> torch.Tensor:
+    """Normal(0, 1/fan_in) (or ``scale``) draws from ``gen``, on ``gen``'s
+    device, cast to ``dtype``."""
+    fan_in = shape[0] if len(shape) >= 2 else shape[-1]
+    s = scale if scale is not None else 1.0 / math.sqrt(fan_in)
+    return (torch.randn(shape, generator=gen, dtype=torch.float32,
+                        device=gen.device) * s).to(dtype)
+
+
+def _full(gen: torch.Generator, shape, value: float, dtype) -> torch.Tensor:
+    return torch.full(shape, value, dtype=dtype, device=gen.device)
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+def attention_params(cfg, gen: torch.Generator, dtype,
+                     cross: bool = False) -> Dict[str, Any]:
+    d, hd = cfg.d_model, cfg.hd
+    p = {
+        "wq": dense_init(gen, (d, cfg.n_heads * hd), dtype),
+        "wk": dense_init(gen, (d, cfg.n_kv_heads * hd), dtype),
+        "wv": dense_init(gen, (d, cfg.n_kv_heads * hd), dtype),
+        "wo": dense_init(gen, (cfg.n_heads * hd, d), dtype),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = _full(gen, (cfg.n_heads * hd,), 0.0, dtype)
+        p["bk"] = _full(gen, (cfg.n_kv_heads * hd,), 0.0, dtype)
+        p["bv"] = _full(gen, (cfg.n_kv_heads * hd,), 0.0, dtype)
+    if cfg.qk_norm:
+        p["q_norm"] = _full(gen, (hd,), 1.0, dtype)
+        p["k_norm"] = _full(gen, (hd,), 1.0, dtype)
+    return p
+
+
+def _qkv(cfg, p, x, x_kv=None):
+    """Project to q [B,S,H,dh], k/v [B,Sk,Hkv,dh]."""
+    b, s, _ = x.shape
+    xk = x if x_kv is None else x_kv
+    sk = xk.shape[1]
+    hd = cfg.hd
+    q = x @ p["wq"]
+    k = xk @ p["wk"]
+    v = xk @ p["wv"]
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = q.reshape(b, s, cfg.n_heads, hd)
+    k = k.reshape(b, sk, cfg.n_kv_heads, hd)
+    v = v.reshape(b, sk, cfg.n_kv_heads, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    return q, k, v
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool, q_offset: int = 0,
+                    block_q: int = 512, block_kv: int = 1024,
+                    rules=None, model_size: int = 1) -> torch.Tensor:
+    """Memory-efficient attention: online softmax over KV blocks, query
+    blocks as a leading batch dimension.  q: [B,S,H,dh], k/v:
+    [B,Sk,Hkv,dh] (grouped-query: H a multiple of Hkv)."""
+    _no_rules(rules, model_size)
+    b, s, h, hd = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    g = h // hkv
+    bq = min(block_q, s)
+    bkv = min(block_kv, sk)
+    nq, nkv = s // bq, sk // bkv
+    if s % bq:
+        nq, bq = 1, s
+    if sk % bkv:
+        nkv, bkv = 1, sk
+    scale = 1.0 / math.sqrt(hd)
+    qb = q.reshape(b, nq, bq, hkv, g, hd).float()
+    kb = k.reshape(b, nkv, bkv, hkv, hd)
+    vb = v.reshape(b, nkv, bkv, hkv, hd)
+    dev = q.device
+    q_pos = q_offset + torch.arange(nq * bq, device=dev).reshape(nq, bq)
+    acc = torch.zeros((b, nq, bq, hkv, g, hd), dtype=torch.float32,
+                      device=dev)
+    mx = torch.full((b, nq, bq, hkv, g), MASK, dtype=torch.float32,
+                    device=dev)
+    den = torch.zeros((b, nq, bq, hkv, g), dtype=torch.float32, device=dev)
+    for j in range(nkv):
+        kc, vc = kb[:, j].float(), vb[:, j].float()
+        sc = torch.einsum("bqthgd,bchd->bqthgc", qb, kc) * scale
+        if causal:
+            k_pos = j * bkv + torch.arange(bkv, device=dev)
+            mask = q_pos[:, :, None] >= k_pos[None, None, :]
+            sc = torch.where(mask[None, :, :, None, None, :], sc, MASK)
+        new_mx = torch.maximum(mx, sc.amax(dim=-1))
+        corr = torch.exp(mx - new_mx)
+        p_ = torch.exp(sc - new_mx[..., None])
+        den = den * corr + p_.sum(dim=-1)
+        pv = torch.einsum("bqthgc,bchd->bqthgd", p_, vc)
+        acc = acc * corr[..., None] + pv
+        mx = new_mx
+    out = acc / torch.clamp(den[..., None], min=1e-30)
+    return out.reshape(b, s, h, hd).to(q.dtype)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, length_mask: torch.Tensor,
+                     rules=None) -> torch.Tensor:
+    """One-token attention against a KV cache.  q: [B,1,H,dh]; caches:
+    [B,S,Hkv,dh]; length_mask: [B, S] bool (True = valid)."""
+    _no_rules(rules)
+    b, _, h, hd = q.shape
+    hkv = k_cache.shape[2]
+    g = h // hkv
+    scale = 1.0 / math.sqrt(hd)
+    qh = q.reshape(b, hkv, g, hd).float()
+    sc = torch.einsum("bhgd,bshd->bhgs", qh, k_cache.float()) * scale
+    sc = torch.where(length_mask[:, None, None, :], sc, MASK)
+    p_ = torch.softmax(sc, dim=-1)
+    out = torch.einsum("bhgs,bshd->bhgd", p_, v_cache.float())
+    return out.reshape(b, 1, h, hd).to(q.dtype)
+
+
+def write_at(cache: torch.Tensor, new: torch.Tensor, pos) -> torch.Tensor:
+    """``lax.dynamic_update_slice_in_dim(cache, new, pos, axis=1)`` out of
+    place: ``new``'s positions written from ``pos`` on (a 0-d tensor or an
+    int; clamped so the slice fits, as the reference's), no host read."""
+    t, s = new.shape[1], cache.shape[1]
+    start = torch.as_tensor(pos, device=cache.device).reshape(()).long()
+    idx = start.clamp(0, s - t) + torch.arange(t, device=cache.device)
+    return cache.index_copy(1, idx, new.to(cache.dtype))
+
+
+def attention(cfg, p, x, *, rules=None, model_size: int = 1,
+              causal: bool = True, x_kv: Optional[torch.Tensor] = None,
+              rope: bool = True,
+              cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+              pos: Optional[torch.Tensor] = None,
+              static_cache: bool = False):
+    """Full attention sub-layer.  Returns (out [B,S,D], new_cache or None).
+
+    Modes:
+      - train/prefill: cache is None -> flash attention; the new k/v are
+        returned as the cache.
+      - decode: cache=(k,v) with static length S; ``pos`` is the scalar
+        write position; returns the updated cache (new tensors).
+      - decode cross-attention: ``static_cache=True`` -- attend to a fixed
+        cache, nothing appended.
+    """
+    _no_rules(rules, model_size)
+    b, s, _ = x.shape
+    q, k, v = _qkv(cfg, p, x, x_kv)
+    if cache is not None and static_cache:
+        kc, vc = cache
+        valid = torch.ones((b, kc.shape[1]), dtype=torch.bool,
+                           device=x.device)
+        out = decode_attention(q, kc, vc, valid)
+        new_cache = cache
+    elif cache is None:
+        if rope and x_kv is None:
+            pid = torch.arange(s, device=x.device) if pos is None else pos
+            q = apply_rope(q, pid, cfg.rope_theta)
+            k = apply_rope(k, pid, cfg.rope_theta)
+        out = flash_attention(q, k, v, causal=causal and x_kv is None,
+                              block_q=cfg.flash_block_q,
+                              block_kv=cfg.flash_block_kv)
+        new_cache = (k, v)
+    else:                      # self-attention decode: append to cache
+        kc, vc = cache
+        sk = kc.shape[1]
+        pos = torch.as_tensor(pos, device=x.device)
+        if rope:
+            pp = pos.reshape(1) if pos.dim() == 0 else pos
+            q = apply_rope(q, pp, cfg.rope_theta)
+            k = apply_rope(k, pp, cfg.rope_theta)
+        kc = write_at(kc, k, pos)
+        vc = write_at(vc, v, pos)
+        valid = torch.arange(sk, device=x.device)[None, :] <= pos
+        out = decode_attention(q, kc, vc, valid.expand(b, sk))
+        new_cache = (kc, vc)
+    out = out.reshape(b, s, cfg.n_heads * cfg.hd)
+    return out @ p["wo"], new_cache
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+def mlp_params(cfg, gen: torch.Generator, dtype) -> Dict[str, Any]:
+    d, f = cfg.d_model, cfg.d_ff
+    if cfg.act == "swiglu":
+        return {"w1": dense_init(gen, (d, f), dtype),
+                "w3": dense_init(gen, (d, f), dtype),
+                "w2": dense_init(gen, (f, d), dtype)}
+    return {"w1": dense_init(gen, (d, f), dtype),
+            "w2": dense_init(gen, (f, d), dtype)}
+
+
+def mlp(cfg, p, x, rules=None):
+    _no_rules(rules)
+    h = x @ p["w1"]
+    if cfg.act == "swiglu":
+        h = F.silu(h) * (x @ p["w3"])
+    elif cfg.act == "sq_relu":            # nemotron squared ReLU
+        h = torch.square(F.relu(h))
+    else:                                 # jax.nn.gelu's tanh form
+        h = F.gelu(h, approximate="tanh")
+    return h @ p["w2"]

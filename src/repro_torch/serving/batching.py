@@ -156,16 +156,19 @@ class PanelState:
     def free_slots(self) -> List[int]:
         return [j for j, r in enumerate(self.reqs) if r is None]
 
-    def admit(self, reqs: List[SolveRequest]) -> None:
+    def admit(self, reqs: List[SolveRequest],
+              rows: Optional[torch.Tensor] = None) -> None:
         """Place requests into free slots (late arrivals join here — the
-        restart-boundary admission of continuous batching)."""
+        restart-boundary admission of continuous batching).  ``rows``
+        (``[len(reqs), n]``): this rank's rows of each request, where they
+        travel apart from the requests (then ``req.b`` is not read)."""
         slots = self.free_slots()
         assert len(reqs) <= len(slots), (len(reqs), len(slots))
-        for j, req in zip(slots, reqs):
+        for i, (j, req) in enumerate(zip(slots, reqs)):
             self.reqs[j] = req
-            self.b[:, j] = torch.as_tensor(
-                req.b[self.row0:self.row0 + self.n],
-                dtype=self.dtype).to(self.b.device)
+            b = rows[i] if rows is not None else torch.as_tensor(
+                req.b[self.row0:self.row0 + self.n], dtype=self.dtype)
+            self.b[:, j] = b.to(self.b.device)
             self.x[:, j] = 0.0
             self.iters[j] = 0
             self.status[j] = 0

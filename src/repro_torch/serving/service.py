@@ -57,7 +57,8 @@ on the wall clock (``dispatch_cost=None``) costs the slowest rank's wall
 (one gather), so the virtual clock, and with it admission, breaker,
 retry, hedge and degrade, is the same on every rank.  ``gather_answers``
 assembles the answers' rows.  A distributed key without ``comm`` is
-refused, and so is any distributed key on ``ThreadedSolverService``.
+refused.  ``ThreadedSolverService`` serves a distributed key live from
+rank 0 (its docstring).
 """
 from __future__ import annotations
 
@@ -620,22 +621,49 @@ class ThreadedSolverService:
     and the completions; submitters only enqueue host arrays.  The lock
     only guards the queue and the completion/event maps, so the segments
     run lock-free.
+
+    A distributed key (``service.comm`` given) runs one such service per
+    rank, in lockstep.  Rank 0 is the front end: ``submit`` and
+    ``result`` work there only.  At each restart boundary rank 0 takes
+    the admissions and the expired requests from its own queue and clock
+    and decides whether to stop (``_decide``, the local service's rule),
+    then hands the decision to every rank (``_exchange``): a header
+    broadcast (``Comm.broadcast``, counted as ``broadcast``) with the stop
+    flag, the admitted and expired counts, the submitted count and each
+    admitted request's rid, tol, deadline and arrival, sized by the free
+    slots, which every rank knows; and, only when requests were admitted,
+    their right-hand sides scattered (``Comm.scatter``, counted as
+    ``scatter``), each rank receiving its own rows.  Both travel on the
+    panel's device; ``Comm`` picks the transport.  Every rank then runs
+    the same segments over its rows, with the psum'd residuals, statuses
+    and finite checks of ``SolverService``, so every rank retires the
+    same columns; the answers' rows are gathered to rank 0, which
+    publishes each once.  The other ranks wait for the next decision in
+    the header broadcast, so while idle rank 0 sends an empty one every
+    ``heartbeat`` seconds, well inside the process group's timeout.  The
+    worker thread is the only issuer of collectives on the service's
+    group while it runs (gloo requires one order per group: a caller that
+    needs a barrier meanwhile uses another group).  ``close()`` on rank 0
+    travels as the stop flag; on the other ranks it waits for it.
+    ``metrics`` are equal on every rank at every boundary.
     """
+
+    # decision header (float64): stop, admitted, expired, submitted; then
+    # per admitted request: rid, tol, deadline, arrival
+    _HEAD, _PER_REQ = 4, 4
 
     def __init__(self, service: SolverService, key: OperatorKey,
                  build_fn: Callable[[], Tuple[Any, Any, Dict]],
-                 poll: float = 0.002):
-        if key.comm != "local":
-            raise NotImplementedError(
-                f"OperatorKey.comm={key.comm!r}: the threaded front-end "
-                f"admits requests by each rank's own wall clock, which the "
-                f"ranks do not share, so distributed ranks would not stay "
-                f"in lockstep; serve the key with SolverService(comm=...) "
-                f"on every rank")
+                 poll: float = 0.002, heartbeat: float = 60.0):
+        _check_key(key, service.comm)
         self.service = service
+        self._comm = service.comm if key.comm != "local" else None
+        self.rank = self._comm.rank if self._comm is not None else 0
         self._queue = RequestQueue(service.queue_capacity,
                                    drain_hint=service.queue_drain_hint)
         self._poll = float(poll)
+        self._heartbeat = float(heartbeat)
+        self._exchanged = time.monotonic()
         self._lock = threading.Lock()
         self._work = threading.Event()
         self._stop = False
@@ -645,6 +673,7 @@ class ThreadedSolverService:
         self.metrics: Dict[str, int] = {
             "submitted": 0, "completed": 0, "timeouts": 0,
             "dispatches": 0, "duplicates": 0, "guard_trips": 0}
+        self.boundaries = 0             # decisions exchanged (distributed)
         self.entry: Optional[CacheEntry] = None
         self._ready = threading.Event()
         self._error: Optional[BaseException] = None
@@ -657,18 +686,31 @@ class ThreadedSolverService:
             raise self._error
 
     # -- submitter side --------------------------------------------------
+    def _front_end(self, what: str) -> None:
+        if self.rank != 0:
+            raise RuntimeError(f"{what} on rank {self.rank}: a distributed "
+                               f"threaded service is served from rank 0")
+
     def submit(self, b, tol: Optional[float] = None,
                deadline: float = math.inf) -> int:
-        """Enqueue one RHS (host array); returns its rid.  Raises
-        ``QueueFull`` when the admission queue is at capacity (callers
-        back off and retry — the same contract as the virtual loop's
-        resubmit path)."""
+        """Enqueue one RHS (host array, all ``n`` rows); returns its rid.
+        Raises ``QueueFull`` when the admission queue is at capacity
+        (callers back off and retry — the same contract as the virtual
+        loop's resubmit path)."""
+        self._front_end("submit")
+        b = np.asarray(b, np.float32)
+        if b.shape != (self.entry.shape.n,):
+            raise ValueError(f"right-hand side of shape {b.shape}, the "
+                             f"operator has {self.entry.shape.n} rows")
         rid = next(self._rids)
-        req = SolveRequest(rid=rid, b=np.asarray(b, np.float32),
+        req = SolveRequest(rid=rid, b=b,
                            arrival=time.monotonic(), deadline=deadline,
                            tol=self.service.tol if tol is None else
                            float(tol))
         with self._lock:
+            self._raise_failure()
+            if self._stop:                  # the worker may have left
+                raise RuntimeError("submit after close()")
             self._queue.offer(req)          # may raise QueueFull
             self._done[rid] = threading.Event()
             self.metrics["submitted"] += 1
@@ -677,23 +719,39 @@ class ThreadedSolverService:
 
     def result(self, rid: int, timeout: Optional[float] = None
                ) -> Completion:
+        self._front_end("result")
         with self._lock:
             evt = self._done[rid]
         if not evt.wait(timeout):
             raise TimeoutError(f"request {rid} not completed")
         with self._lock:
+            if rid not in self._completions:
+                self._raise_failure()
             return self._completions[rid]
 
     def close(self, timeout: Optional[float] = None) -> None:
-        """Drain outstanding work, then stop the solver thread."""
-        self._stop = True
-        self._work.set()
+        """Drain outstanding work, then stop the solver thread (on every
+        rank: rank 0 decides the stop, the others wait for it).  Raises
+        if the solver thread failed."""
+        if self.rank == 0:
+            with self._lock:
+                self._stop = True
+            self._work.set()
         self._thread.join(timeout)
+        self._raise_failure()
+
+    def _raise_failure(self) -> None:
+        if self._error is not None:
+            raise RuntimeError(f"the solver thread on rank {self.rank} "
+                               f"failed") from self._error
 
     # -- solver thread ---------------------------------------------------
     def _publish(self, req: SolveRequest, status: str,
                  x: Optional[torch.Tensor], iters: int, relres: float,
                  via: str = "primary", solver_status: int = 0) -> None:
+        if self.rank != 0:              # rank 0 publishes; count alike
+            self.metrics["completed"] += 1
+            return
         c = Completion(req.rid, status, req.arrival, time.monotonic(),
                        x=x, iters=iters, relres=relres, via=via,
                        solver_status=solver_status)
@@ -705,36 +763,118 @@ class ThreadedSolverService:
             self.metrics["completed"] += 1
             self._done[req.rid].set()
 
+    def _decide(self, panel: PanelState):
+        """Rank 0's boundary decision from its queue and clock:
+        (admitted, expired, stop), or None while idle (nothing to admit,
+        expire or stop, an empty panel)."""
+        free = len(panel.free_slots())
+        with self._lock:
+            live, dead = (self._queue.take(free, time.monotonic())
+                          if free else ([], []))
+            stop = self._stop and len(self._queue) == 0
+        if live or dead or panel.occupancy:
+            return live, dead, False
+        return ([], [], True) if stop else None
+
+    def _exchange(self, panel: PanelState, step):
+        """Every rank's copy of rank 0's decision ``step`` (None: idle, a
+        heartbeat): (admitted, expired, stop, this rank's rows of the
+        admitted), or None while idle.  The expired are rank 0's requests
+        there and rid-only stand-ins elsewhere."""
+        comm, free = self._comm, len(panel.free_slots())
+        head = torch.zeros(self._HEAD + self._PER_REQ * free,
+                           dtype=torch.float64)
+        live, dead, stop = step if step is not None else ([], [], False)
+        if self.rank == 0:
+            vals = [float(stop), len(live), len(dead),
+                    self.metrics["submitted"]]
+            for req in live:
+                vals += [req.rid, req.tol, req.deadline, req.arrival]
+            head[:len(vals)] = torch.tensor(vals, dtype=torch.float64)
+        head = comm.broadcast(head.to(panel.b.device),
+                              kind="broadcast").tolist()
+        self._exchanged = time.monotonic()
+        self.boundaries += 1
+        n_live, n_dead = int(head[1]), int(head[2])
+        rows = None
+        if n_live:
+            parts = None
+            if self.rank == 0:              # [p, admitted, n_local]
+                b = np.stack([req.b for req in live]).reshape(
+                    n_live, comm.p, panel.n).transpose(1, 0, 2)
+                parts = torch.from_numpy(np.ascontiguousarray(b)).to(
+                    panel.b.device)
+            rows = comm.scatter(parts, (n_live, panel.n), panel.b,
+                                kind="scatter")
+        if self.rank != 0:
+            self.metrics["submitted"] = int(head[3])
+            stop = bool(head[0])
+            live = [SolveRequest(rid=int(rid), b=None, arrival=arrival,
+                                 deadline=deadline, tol=tol)
+                    for rid, tol, deadline, arrival in (
+                        head[self._HEAD + self._PER_REQ * i:
+                             self._HEAD + self._PER_REQ * (i + 1)]
+                        for i in range(n_live))]
+            dead = [SolveRequest(rid=-1, b=None, arrival=0.0)] * n_dead
+        if not (live or dead or stop or panel.occupancy):
+            return None
+        return live, dead, stop, rows
+
+    def _boundary(self, panel: PanelState):
+        """(admitted, expired, stop, rows) at a restart boundary, or None
+        while idle (rank 0 then waits for work).  Rank 0 decides; a
+        distributed service exchanges the decision, and while idle an
+        empty one once ``heartbeat`` seconds have passed."""
+        step = self._decide(panel) if self.rank == 0 else None
+        if self._comm is None:
+            step = None if step is None else (*step, None)
+        elif self.rank != 0 or step is not None or (
+                time.monotonic() - self._exchanged >= self._heartbeat):
+            step = self._exchange(panel, step)
+        if step is None and self.rank == 0:
+            self._work.wait(self._poll)
+            self._work.clear()
+        return step
+
     def _run(self, key: OperatorKey, build_fn) -> None:
         svc = self.service
         try:
             self.entry = svc.operator(key, build_fn)
             seg = svc._segment_fn(self.entry, svc.restart_every)
             one = svc._pcg_fn(self.entry)   # guard-trip fallback
-            panel = PanelState(n=self.entry.shape.n,
-                               width=svc.panel_width, device=svc.device)
+            rows, row0 = svc._rows(self.entry)
+            panel = PanelState(n=rows, width=svc.panel_width,
+                               device=svc.device, row0=row0)
         except BaseException as e:          # handed to the constructor
             self._error = e
             return
         finally:
             self._ready.set()
+        try:
+            self._serve(panel, seg, one)
+        except BaseException as e:      # result(), submit(), close() raise it
+            self._error = e
+            with self._lock:
+                self._stop = True
+                for evt in self._done.values():
+                    evt.set()
+
+    def _serve(self, panel: PanelState, seg, one) -> None:
+        svc = self.service
         max_total_iters = svc.restart_every * svc.max_segments
         while True:
-            with self._lock:
-                free = panel.free_slots()
-                live, dead = (self._queue.take(len(free), time.monotonic())
-                              if free else ([], []))
-                queued = len(self._queue)
+            step = self._boundary(panel)
+            if step is None:
+                continue
+            live, dead, stop, b_rows = step
             for d in dead:
                 self.metrics["timeouts"] += 1
                 self._publish(d, "timeout", None, 0, math.nan)
+            if stop:
+                return
             if live:
-                panel.admit(live)
+                panel.admit(live, b_rows)
             if panel.occupancy == 0:
-                if self._stop and queued == 0:
-                    return
-                self._work.wait(self._poll)
-                self._work.clear()
                 continue
             with phase("serve/solve"):
                 res = seg(panel.b, panel.x, panel.tightest_tol(svc.tol))
@@ -758,16 +898,22 @@ class ThreadedSolverService:
                 relres[j] = float(r1.relres)
                 panel.status[j] = worst_status(r1.status)
                 panel.degraded[j] = True
-            for j, req in enumerate(panel.reqs):
-                if req is None:
-                    continue
+            done = [j for j, req in enumerate(panel.reqs)
+                    if req is not None and (
+                        relres[j] <= req.tol or panel.degraded[j]
+                        or panel.iters[j] >= max_total_iters)]
+            if not done:
+                continue
+            xs = panel.x[:, done]
+            if self._comm is not None:      # every rank's rows, rank order
+                xs = self._comm.all_gather(xs)
+            for i, j in enumerate(done):
+                req = panel.reqs[j]
                 ok = relres[j] <= req.tol
-                if ok or panel.iters[j] >= max_total_iters \
-                        or panel.degraded[j]:
-                    self._publish(req, "ok" if ok else "failed",
-                                  panel.x[:, j].clone(),
-                                  int(panel.iters[j]), float(relres[j]),
-                                  via="degraded" if panel.degraded[j]
-                                  else "primary",
-                                  solver_status=int(panel.status[j]))
-                    panel.evict(j)
+                self._publish(req, "ok" if ok else "failed",
+                              xs[:, i].clone(), int(panel.iters[j]),
+                              float(relres[j]),
+                              via="degraded" if panel.degraded[j]
+                              else "primary",
+                              solver_status=int(panel.status[j]))
+                panel.evict(j)

@@ -14,8 +14,8 @@ same dispatches (virtual start, active columns, breaker state -- so the
 same batches in admission order), the same counters and breaker
 transitions, iterations within 1 and ``x`` within 1e-4.  Also: the span
 trace parses and holds the serve spans; an ``OperatorKey`` with a
-distributed ``comm`` is refused; on the card, a second service on the
-same cache entry captures nothing.
+distributed ``comm`` is refused without a ``comm=``; on the card, a
+second service on the same cache entry captures nothing.
 
 JAX is imported inside fixtures only.
 """
@@ -23,7 +23,6 @@ import dataclasses
 import json
 import threading
 import time
-import types
 
 import numpy as np
 import pytest
@@ -446,21 +445,19 @@ class TestServeLoop:
     @pytest.mark.parametrize("comm", ["halo-plan", "allgather"])
     def test_distributed_key_is_refused(self, operator, comm):
         """A distributed key needs each rank's ``comm=`` (served in
-        lockstep: ``tests/test_torch_serving_dist.py``); the threaded
-        front-end refuses one even with a ``comm``, since its admissions
-        follow each rank's own wall clock."""
+        lockstep: ``tests/test_torch_serving_dist.py``, and live from
+        rank 0 by the threaded front-end:
+        ``tests/test_torch_threaded_dist.py``); without one, both the
+        virtual loop and the threaded front-end refuse it, and neither
+        builds the operator."""
         _, key, build, _ = operator
         dkey = dataclasses.replace(key, comm=comm)
         svc = _drill_service()
         with pytest.raises(NotImplementedError, match="every rank"):
             svc.serve(_load(n_requests=2).requests(), dkey, build)
-        with pytest.raises(NotImplementedError, match="wall clock"):
+        with pytest.raises(NotImplementedError, match="every rank"):
             ThreadedSolverService(svc, dkey, build)
-        ranked = _drill_service(comm=types.SimpleNamespace(rank=0, p=1))
-        with pytest.raises(NotImplementedError, match="wall clock"):
-            ThreadedSolverService(ranked, dkey, build)
         assert svc.cache.stats()["misses"] == 0
-        assert ranked.cache.stats()["misses"] == 0
 
 
 # ---------------------------------------------------------------------------
