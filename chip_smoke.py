@@ -118,7 +118,7 @@ requests' tol 1e-4), and the span trace; and last distributed serving
 (``[dserve]``): that operator partitioned over 4 gloo ranks, each running
 a ``SolverService(comm=...)`` in lockstep on the halo-plan key (8
 requests, panel 8, tol 1e-4, on the wall clock: each dispatch costs the
-slowest rank's wall), then, cut to N = 2^16, the local key in this
+slowest rank's wall), then, cut to N = 2^14, the local key in this
 process, the halo-plan and allgather keys and a NaN drill on the cached
 halo-plan resident; every answer recomputed with the plain HGEMV (10 x
 tol), the cut ones also against the local service's, every rank's
@@ -141,7 +141,14 @@ extended sequence (float32, 1e-3), the int8 cache's attention on the
 served layer-0 cache (3e-2), and the H^2 token mixer at S = 4096, D =
 1,024 on the kernels against the plain backend (1e-5), its compress on
 the kernels against the plain compress, 64 rows against the dense mix
-in float64 and its time beside the dense ``torch.matmul`` mix.
+in float64 and its time beside the dense ``torch.matmul`` mix; and the
+other LM families (``[lmfam]``): qwen3-moe-30b-a3b, rwkv6-7b, zamba2-7b,
+llama-3.2-vision-11b and whisper-tiny at full width in bfloat16, depth
+cut (``LMFAM_DEPTH``), each served by ``BatchedServer`` (8 prompts of 128
+tokens, 32 new tokens a request, in vocab; prefill, decode, tokens/s,
+peak memory, a decode step's idle share), prefill + k decode steps
+against a prefill of s + k tokens in float32 with seeded nonzero stub
+inputs (1e-3), and the MoE's dropped choices; no kernel runs there.
 Launch counts are reset just before each path and read just after (graph
 replays launch kernels without their wrappers: logged apart).
 Any failure raises; the last line is the device JSON only on success.
@@ -2093,9 +2100,10 @@ DSOLVE_MODE = "halo-plan"
 # the two-step schedule (all_gather transpositions, per-level exchanges,
 # one-row V-cycle halos) is held to the fused one over this many
 # iterations from the same start instead of a whole solve, which would
-# take the phase past ~150 s at ~0.3-0.5 s an iteration (PERF.md §6); 20
-# rather than 30 keeps the whole script within its time limit
-TWO_STEP_ITERS = 20
+# take the phase past ~150 s at ~0.3-0.5 s an iteration (PERF.md §6); 10
+# (one segment) rather than 30 or 20 keeps the whole script within its
+# time limit
+TWO_STEP_ITERS = 10
 # the two schedules' H^2 products may sum in other orders; over
 # TWO_STEP_ITERS iterations their iterates stay within the phase's
 # solution bound
@@ -3716,10 +3724,10 @@ OBS_REPS = 10                   # interleaved rounds of the two HGEMVs
 OBS_SOLVE_STEPS = 10            # graph-replayed [solve] iterations traced
 # the profile of the [dsolve] problem: each round times a whole solve
 # capped at one segment (10 iterations) and the 11 truncated loops of one
-# iteration each, in both comm modes; 3 rounds (and a warmup round) keep
-# the profile near a minute at ~0.2-0.5 s an eager iteration
+# iteration each, in both comm modes; 1 round (and a warmup round) keeps
+# the profile under a minute at ~0.2-0.5 s an eager iteration
 OBS_PROFILE = dict(modes=("halo-plan", "allgather"), tol=1e-8, maxiter=10,
-                   reps=2, loop_m=1)
+                   reps=1, loop_m=1)
 # device work in a profiler trace
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
@@ -3944,7 +3952,7 @@ def obs_phase(torch, keep: dict, device: str = "cuda") -> dict:
 
 DSERVE_REQUESTS = 8
 DSERVE_PANEL = 8
-DSERVE_CUT_LOG2N = 16           # the allgather key and the NaN drill
+DSERVE_CUT_LOG2N = 14           # the allgather key, the NaN drill, [tserve]
 DSERVE_RATE = 1000.0            # every request arrives within ~10 ms
 
 
@@ -4030,7 +4038,7 @@ def dserve_phase(torch, keep: dict, device: str = "cuda") -> dict:
     and keyed ``halo-plan``, 8 requests on a panel of 8 at tol 1e-4, 100
     iterations a dispatch, the Krylov guards off (as ``[serve]``), on the
     wall clock (each dispatch costs the slowest rank's wall); then, cut to
-    N = 2^16 (``DSERVE_CUT_LOG2N``), the local key in this process (CUDA
+    N = 2^14 (``DSERVE_CUT_LOG2N``), the local key in this process (CUDA
     graphs), the ``halo-plan`` and ``allgather`` keys and the NaN drill on
     the cached halo-plan resident (a hit, retried).  Every answer is
     recomputed with the single-device plain HGEMV (10 x tol), the cut
@@ -4185,7 +4193,7 @@ TSERVE_QUEUE = 8
 TSERVE_REQUESTS = {"halo-plan": 24,
                    "allgather": DSERVE_PANEL + TSERVE_QUEUE + 1}
 TSERVE_MODES = ("halo-plan", "allgather")
-TSERVE_RESTART = 250            # a request's ~200 iterations in 1 dispatch
+TSERVE_RESTART = 250            # a request's iterations in 1 dispatch
 TSERVE_JOIN_S = 300
 
 
@@ -4286,7 +4294,7 @@ def _tserve_rank_work(rank: int, shard, on_card: bool, shape, dshape,
 
 def tserve_phase(torch, keep: dict, device: str = "cuda") -> dict:
     """``ThreadedSolverService`` on distributed keys (``halo-plan`` and
-    ``allgather``): the ``[dserve]`` operator cut to N = 2^16, partitioned
+    ``allgather``): the ``[dserve]`` operator cut to N = 2^14, partitioned
     over ``DIST_P`` gloo ranks, one threaded service per rank in lockstep,
     rank 0 the front end (4 submitter threads, 24 requests, 17 on the
     allgather key, a queue of 8: ``QueueFull`` exercised).  Requires every
@@ -4685,6 +4693,269 @@ def lm_phase(torch, timer, device: str = "cuda", reduced: bool = False,
                 launches=launches, phase_s=t_phase)
 
 
+# ---------------------------------------------------------------------------
+# lmfam phase: the other LM families at full width, depth cut
+# ---------------------------------------------------------------------------
+
+# layers run at full width: each keeps every kind of block of its family
+LMFAM_DEPTH = {
+    "qwen3-moe-30b-a3b": 4,         # of 48: 128 experts top-8, untied head
+    "rwkv6-7b": 8,                  # of 32
+    "zamba2-7b": 15,                # of 81: 2 groups of 6 + a tail of 3
+    "llama-3.2-vision-11b": 10,     # of 40: 2 cross-attention layers
+    "whisper-tiny": 4,              # of 4 (whole; 4 encoder layers)
+}
+# the CPU rehearsal's depths (reduced widths): a zamba2 tail, 2 cross layers
+LMFAM_REDUCED_DEPTH = {"zamba2-7b": 5, "llama-3.2-vision-11b": 4}
+# prefill of s tokens + k decode steps vs a prefill of s + k: (s, k)
+LMFAM_CONSIST = {
+    "qwen3-moe-30b-a3b": (128, 1),
+    "rwkv6-7b": (128, 16),          # both multiples of the wkv chunk of 16
+    "zamba2-7b": (128, 64),         # both multiples of the SSD chunk of 64
+    "llama-3.2-vision-11b": (128, 1),
+    "whisper-tiny": (128, 1),
+}
+LMFAM_CONSIST_TOL = 1e-3            # float32 at full width, as [lm]
+LMFAM_CONSIST_BATCH = 2
+
+
+def _lmfam_stubs(torch, cfg, b: int, gen, dtype) -> dict:
+    """Seeded nonzero ``img_embed`` / ``frames`` (zeros would make the
+    cross-attention vanish and hide a fault)."""
+    out = {}
+    for key, n, fam in (("img_embed", cfg.n_img_tokens, "vlm"),
+                        ("frames", cfg.n_frames, "audio")):
+        if cfg.family == fam:
+            out[key] = torch.randn((b, n, cfg.d_model), generator=gen,
+                                   device=gen.device).to(dtype)
+    return out
+
+
+def _lmfam_consistency(torch, cfg, params, toks, stubs, k: int) -> float:
+    """Prefill of ``toks[:, :-k]`` + k decode steps fed the known next
+    tokens against a prefill of all of ``toks``: relative L2 of the last
+    logits."""
+    from repro_torch.models import api
+    s = toks.shape[1] - k
+    with torch.no_grad():
+        _, cache = api.prefill(cfg, params, {"tokens": toks[:, :s], **stubs},
+                               cache_len=s + k)
+        for j in range(k):
+            logits, cache = api.decode_step(
+                cfg, params, {"tokens": toks[:, s + j:s + j + 1], **stubs},
+                cache, torch.tensor(s + j, device=toks.device))
+        full, _ = api.prefill(cfg, params, {"tokens": toks, **stubs})
+    return float((logits.double() - full.double()).norm() /
+                 full.double().norm())
+
+
+class _MoeDrops:
+    """Counts the (token, expert) choices that capacity dispatch drops, by
+    wrapping ``models.moe.moe_ffn`` while active (the router and capacity
+    rules of ``moe._moe_shard`` recomputed on each layer's input)."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.dropped = 0
+        self.choices = 0
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self._orig = moe.moe_ffn
+
+        def counted(cfg, p, x, rules=None):
+            torch = self.torch
+            t = x.shape[0] * x.shape[1]
+            probs = torch.softmax((x.reshape(t, -1) @ p["router"]).float(),
+                                  -1)
+            _, eid = moe.top_k(probs, cfg.top_k)
+            counts = torch.bincount(eid.reshape(-1),
+                                    minlength=cfg.n_experts)
+            cap = moe._capacity(cfg, t)
+            self.dropped += int((counts - cap).clamp(min=0).sum())
+            self.choices += t * cfg.top_k
+            return self._orig(cfg, p, x, rules)
+
+        moe.moe_ffn = counted
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe.moe_ffn = self._orig
+        return False
+
+
+def lmfam_phase(torch, timer, device: str = "cuda", reduced: bool = False,
+                card: str = "") -> dict:
+    """The serving path of the other LM families through ``models/api`` and
+    ``BatchedServer``: qwen3-moe-30b-a3b, rwkv6-7b, zamba2-7b,
+    llama-3.2-vision-11b and whisper-tiny at their full published width in
+    bfloat16 (the port's seeded init), depth cut to ``LMFAM_DEPTH``.  Per
+    family: 8 prompts of 128 tokens, ``max_len`` 256, 32 new tokens after
+    a 2-token warm serve (the reference's zero stubs), every request
+    returning 32 in-vocab tokens; init seconds, prefill ms (CUDA events),
+    decode ms a token (serve wall less prefill), tokens/s, peak memory, the
+    idle share of one traced decode step; prefill + k decode steps against
+    a prefill of s + k tokens in float32 (1e-3; bfloat16 printed) with
+    seeded nonzero stubs, MoE at a capacity that drops nothing; the MoE's
+    dropped choices at the default capacity factor.  ``reduced`` runs it
+    on the reduced configs for a rehearsal on the CPU."""
+    import numpy as np
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.serve import BatchedServer, make_requests
+    from repro_torch.models import api
+    from repro_torch.models.transformer import tree_map
+
+    t_phase = time.perf_counter()
+    on_card = device == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    start = tally_start()
+    fams = {}
+    for arch, depth in LMFAM_DEPTH.items():
+        t_fam = time.perf_counter()
+        full = get_config(arch)
+        if reduced:
+            cfg = full.reduced(n_layers=LMFAM_REDUCED_DEPTH.get(
+                arch, full.reduced().n_layers))
+        else:
+            cfg = dataclasses.replace(full, n_layers=depth)
+        cut = f"{cfg.n_layers} of {full.n_layers} layers"
+        if cfg.family == "hybrid":
+            per = cfg.attn_every
+            cut += (f" ({cfg.n_layers // per} groups of {per} + a tail of "
+                    f"{cfg.n_layers % per}, {cfg.n_layers // per} shared-"
+                    f"block applications)")
+        elif cfg.family == "vlm":
+            cut += f" ({cfg.n_layers // cfg.cross_every} cross-attention)"
+        elif cfg.family == "audio":
+            cut += f" + {cfg.enc_layers} encoder layers"
+        t0 = time.perf_counter()
+        params = api.init_params(cfg, LM_SEED, device)
+        sync()
+        t_init = time.perf_counter() - t0
+        n_params = sum(t.numel() for t in _leaves(params))
+        server = BatchedServer(cfg, params, batch_size=LM_REQUESTS,
+                               max_len=LM_MAX_LEN, device=device)
+        reqs = make_requests(cfg, LM_REQUESTS, LM_PROMPT, LM_NEW, LM_SEED)
+        server.serve(make_requests(cfg, LM_REQUESTS, LM_PROMPT, 2, LM_SEED))
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        sync()
+        t0 = time.perf_counter()
+        out = server.serve(reqs)
+        sync()
+        t_serve = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() if on_card else 0
+        require(sorted(out) == list(range(LM_REQUESTS)) and
+                all(len(v) == LM_NEW for v in out.values()) and
+                all(0 <= t < cfg.vocab for v in out.values() for t in v),
+                f"[lmfam] {arch}: the server did not return {LM_NEW} "
+                f"in-vocab tokens per request")
+        batch, s = server._batchify(reqs)
+        with torch.no_grad():
+            prefill_ms = timer.ms(lambda: server.prefill(batch), reps=3,
+                                  warmup=1) if on_card else float("nan")
+            drops = {}
+            if cfg.moe:
+                with _MoeDrops(torch) as dp:
+                    _, cache = server.prefill(batch)
+                drops["prefill"] = (dp.dropped, dp.choices)
+                tok0 = torch.zeros((LM_REQUESTS, 1), dtype=torch.long,
+                                   device=device)
+                with _MoeDrops(torch) as dd:
+                    server.decode({**batch, "tokens": tok0}, cache,
+                                  torch.tensor(s, device=device))
+                drops["decode"] = (dd.dropped, dd.choices)
+            else:
+                _, cache = server.prefill(batch)
+        decode_ms = (t_serve * 1e3 - prefill_ms) / LM_NEW
+        toks = sum(len(v) for v in out.values())
+        idle = None
+        if on_card:                 # where one decode step's time goes
+            tok0 = torch.zeros((LM_REQUESTS, 1), dtype=torch.long,
+                               device=device)
+            pos0 = torch.tensor(s, device=device)
+            with torch.no_grad():
+                idle = device_idle_share(
+                    torch, lambda: server.decode({**batch, "tokens": tok0},
+                                                 cache, pos0),
+                    OBS_DIR / f"lmfam_{cfg.name}_decode_trace.json",
+                    reps=5)
+        del server, cache, batch
+        log(f"[lmfam] {arch} {'reduced' if reduced else 'full width'}, depth cut to {cut} (d "
+            f"{cfg.d_model}, vocab {cfg.vocab}, {cfg.param_dtype}, "
+            f"{n_params} parameters, seeded init {t_init:.2f} s): "
+            f"{LM_REQUESTS} requests x {LM_PROMPT}-token prompts, max_len "
+            f"{LM_MAX_LEN}, {LM_NEW} new tokens: {toks} tokens in "
+            f"{t_serve:.3f} s ({toks / t_serve:.1f} tokens/s); prefill "
+            f"{prefill_ms:.3f} ms (CUDA events, L2 flushed), decode "
+            f"{decode_ms:.3f} ms a token (serve wall less prefill); peak "
+            f"memory {peak} bytes; request 0's first tokens {out[0][:8]}; "
+            f"{card}")
+        if idle is not None:
+            log(f"[lmfam] {arch} one decode step traced: "
+                f"{idle['device_ops']} device operations, busy "
+                f"{idle['busy_us']:.0f} us of the untraced "
+                f"{idle['untraced_us']:.0f} us: idle share "
+                f"{idle['idle_share_untraced']:.3f} (traced window "
+                f"{idle['window_us']:.0f} us, {idle['idle_share']:.3f}); "
+                f"trace {idle['trace']}")
+        if drops:
+            log(f"[lmfam] {arch} capacity dispatch at capacity_factor "
+                f"{cfg.capacity_factor}: dropped (token, expert) choices "
+                f"{drops['prefill'][0]} of {drops['prefill'][1]} in the "
+                f"served prefill (T = {LM_REQUESTS * s}), "
+                f"{drops['decode'][0]} of {drops['decode'][1]} in one decode "
+                f"step (T = {LM_REQUESTS})")
+
+        # prefill + k decode steps vs a prefill of s + k tokens
+        cs, ck = LMFAM_CONSIST[arch]
+        if reduced:
+            cs, ck = 16, min(ck, 16)
+        rng = np.random.default_rng(LM_SEED)
+        ctoks = torch.from_numpy(rng.integers(
+            0, cfg.vocab, (LMFAM_CONSIST_BATCH, cs + ck))).to(device)
+        gen = torch.Generator(device=device).manual_seed(LM_SEED)
+        stubs = _lmfam_stubs(torch, cfg, LMFAM_CONSIST_BATCH, gen,
+                             getattr(torch, cfg.act_dtype))
+        cfg_c = (dataclasses.replace(cfg, capacity_factor=float(
+            cfg.n_experts)) if cfg.moe else cfg)
+        bf16_gap = _lmfam_consistency(torch, cfg_c, params, ctoks, stubs, ck)
+        cfg32 = dataclasses.replace(cfg_c, param_dtype="float32",
+                                    act_dtype="float32")
+        p32 = tree_map(lambda t: t.float(), params)
+        del params
+        f32_gap = _lmfam_consistency(torch, cfg32, p32, ctoks,
+                                     {k: v.float() for k, v in
+                                      stubs.items()}, ck)
+        del p32
+        if on_card:
+            torch.cuda.empty_cache()
+        t_fam = time.perf_counter() - t_fam
+        log(f"[lmfam] {arch} prefill {cs} + {ck} decode steps vs a prefill "
+            f"of {cs + ck} ({LMFAM_CONSIST_BATCH} sequences, seeded nonzero "
+            f"stubs{', capacity_factor ' + str(cfg_c.capacity_factor) if cfg.moe else ''}"
+            f", logits): float32 {f32_gap:.3e} (tol {LMFAM_CONSIST_TOL:g}), "
+            f"bfloat16 {bf16_gap:.3e}; family took {t_fam:.1f} s")
+        require(f32_gap <= LMFAM_CONSIST_TOL,
+                f"[lmfam] {arch} float32 prefill/decode gap {f32_gap:.3e}")
+        fams[arch] = dict(
+            layers=cfg.n_layers, layers_of=full.n_layers, params=n_params,
+            init_s=t_init, prefill_ms=prefill_ms, decode_ms=decode_ms,
+            tokens_per_s=toks / t_serve, peak_bytes=peak, decode_idle=idle,
+            consistency_f32=f32_gap, consistency_bf16=bf16_gap,
+            consistency_sk=[cs, ck],
+            moe_dropped={k: list(v) for k, v in drops.items()}, wall_s=t_fam)
+    launches, _, _ = launches_that_ran(start)
+    t_phase = time.perf_counter() - t_phase
+    log(f"[lmfam] launches of the five kernels over the phase: {launches} "
+        f"(the families' scans, dispatch and attention are plain PyTorch, "
+        f"as the reference's are plain jnp)")
+    log(f"[lmfam] phase took {t_phase:.1f} s; {card}")
+    return dict(families=fams, phase_s=t_phase, launches=launches)
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -4837,6 +5108,9 @@ def main() -> int:
     for name, n in lm["launches"].items():
         log(f"[kernels] {name}: {n} launches on the LM path (the H^2 "
             f"mixer)")
+    lmfam = lmfam_phase(torch, timer, card=smi)
+    for name, n in lmfam["launches"].items():
+        log(f"[kernels] {name}: {n} launches on the LM families path")
     kernels = []
     for name in KERNELS:
         r = results[name]
@@ -4892,6 +5166,8 @@ def main() -> int:
                                if k != "launches"},
                     "dryrun": dry,
                     "lm": {k: v for k, v in lm.items() if k != "launches"},
+                    "lmfam": {k: v for k, v in lmfam.items()
+                              if k != "launches"},
                     "kernel_detail": detail, "card": smi}))
     log(smi)
     log(json.dumps({"kernels": kernels}))

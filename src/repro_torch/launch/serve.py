@@ -2,8 +2,10 @@
 the port of the reference's ``launch/serve.py``.
 
     python -m repro_torch.launch.serve --arch qwen3-0.6b --requests 8
+    python -m repro_torch.launch.serve --arch rwkv6-7b --device cpu
     python -m repro_torch.launch.serve --full --requests 8 --prompt-len 128
 
+``--arch`` takes any of the 10 configs (``configs/base.py``).
 ``--reduced`` (the default, as the reference's) serves the family's small
 config in float32; ``--full`` the real one (qwen3-0.6b: 28 layers, d 1024,
 bfloat16).  Weights come from the port's seeded init: nothing is
@@ -11,7 +13,10 @@ downloaded.  ``--device`` defaults to ``cuda``.
 
 The batch is static and left-padded with token 0, as the reference's, and
 the padding is not masked: a shorter prompt attends to the pad tokens in
-front of it (the reference's behaviour, kept).
+front of it (the reference's behaviour, kept).  The ``vlm`` and ``audio``
+families get the reference's stub inputs, zero ``img_embed`` [B,
+n_img_tokens, D] and ``frames`` [B, n_frames, D] in the activation dtype;
+they stay in the decode batch, which reads the cached cross K/V.
 """
 from __future__ import annotations
 
@@ -52,7 +57,16 @@ class BatchedServer:
         toks = np.zeros((self.bs, s), np.int64)
         for i, r in enumerate(reqs):
             toks[i, s - len(r.prompt):] = r.prompt     # left-pad
-        return {"tokens": torch.from_numpy(toks).to(self.device)}, s
+        b = {"tokens": torch.from_numpy(toks).to(self.device)}
+        cfg, act = self.cfg, getattr(torch, self.cfg.act_dtype)
+        if cfg.family == "vlm":            # the reference's zero stubs
+            b["img_embed"] = torch.zeros(
+                (self.bs, cfg.n_img_tokens, cfg.d_model), dtype=act,
+                device=self.device)
+        if cfg.family == "audio":
+            b["frames"] = torch.zeros((self.bs, cfg.n_frames, cfg.d_model),
+                                      dtype=act, device=self.device)
+        return b, s
 
     def prefill(self, batch):
         return api.prefill(self.cfg, self.params, batch,
@@ -80,7 +94,7 @@ class BatchedServer:
             for step in range(max_new):
                 steps.append(tok)
                 logits, cache = self.decode(
-                    {"tokens": tok}, cache,
+                    {**batch, "tokens": tok}, cache,
                     torch.tensor(s + step, device=self.device))
                 tok = logits.argmax(-1)[:, None]
         toks = torch.cat(steps, dim=1).cpu().numpy() if steps else \

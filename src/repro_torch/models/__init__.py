@@ -1,3 +1,5 @@
 """The LM substrate of the port: configuration (``config``), layers, the
-dense decoder (``transformer``), the H^2 token mixer (``h2mixer``) and the
-family dispatch (``api``).  Only the dense family is ported so far."""
+dense decoder (``transformer``, with the mixture-of-experts FFN of
+``moe``), the other families (``rwkv6``, ``mamba2`` + ``zamba2``,
+``vision``, ``whisper``), the H^2 token mixer (``h2mixer``) and the family
+dispatch (``api``)."""

@@ -6,9 +6,14 @@ every architecture exposes the same entry points.
     prefill(cfg, params, batch, cache_len)                  -> (logits, cache)
     decode_step(cfg, params, batch, cache, pos)             -> (logits, cache)
 
-``batch`` is a dict holding ``tokens`` (plus the stub modality inputs of
-the families not ported yet).  Only the dense family is ported; every
-other family raises ``NotImplementedError`` naming its ROADMAP item.
+``batch`` is a dict holding ``tokens`` plus the stub modality inputs:
+``img_embed`` [B, n_img_tokens, D] for the ``vlm`` family and ``frames``
+[B, n_frames, D] for ``audio`` (read by the prefill and the loss; decode
+reads the cached cross K/V).  The families dispatch on ``cfg.family``:
+``rwkv`` (``rwkv6``), ``hybrid`` (``zamba2``), ``vlm`` (``vision``),
+``audio`` (``whisper``) and ``dense`` (``transformer``, with the
+mixture-of-experts FFN where ``cfg.moe``).  ``train_loss`` is the forward
+value (training is a later slice).
 
 ``params_from_numpy`` carries the reference's parameter pytree across (as
 numpy arrays, bfloat16 included), so both packages compute the same
@@ -21,23 +26,9 @@ from typing import Any, Dict, Optional, Union
 import numpy as np
 import torch
 
-from . import transformer
+from . import rwkv6, transformer, vision, whisper, zamba2
 from .config import ModelConfig
-
-_PENDING = {
-    "rwkv": "rwkv6 serving (models/rwkv6.py)",
-    "hybrid": "mamba2 + zamba2 serving (models/mamba2.py, models/zamba2.py)",
-    "vlm": "vision serving (models/vision.py)",
-    "audio": "whisper serving (models/whisper.py)",
-}
-
-
-def _dense(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
-        item = _PENDING.get(cfg.family, f"the {cfg.family!r} family")
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet (ROADMAP "
-            f"Queue 1, LM substrate item (a): {item})")
+from .transformer import _head, chunked_ce_loss
 
 
 def _generator(seed: Union[int, torch.Generator], device) -> torch.Generator:
@@ -48,32 +39,101 @@ def _generator(seed: Union[int, torch.Generator], device) -> torch.Generator:
     return gen
 
 
+def _logits_last(params, hidden) -> torch.Tensor:
+    return (hidden[:, -1] @ _head(params)).float()
+
+
 def init_params(cfg: ModelConfig, seed: Union[int, torch.Generator] = 0,
                 device="cuda") -> Dict[str, Any]:
     """Random parameters of ``cfg`` on ``device``, drawn from ``seed`` (an
     int, or a ``torch.Generator`` whose device is used)."""
-    _dense(cfg)
-    return transformer.init_params(cfg, _generator(seed, device))
+    gen = _generator(seed, device)
+    if cfg.family == "rwkv":
+        return rwkv6.rwkv_init(cfg, gen)
+    if cfg.family == "hybrid":
+        return zamba2.init_params(cfg, gen)
+    if cfg.family == "vlm":
+        return vision.init_params(cfg, gen)
+    if cfg.family == "audio":
+        return whisper.init_params(cfg, gen)
+    return transformer.init_params(cfg, gen)
 
 
 def train_loss(cfg: ModelConfig, params, batch: Dict[str, Any],
                rules=None, msize: int = 1):
-    _dense(cfg)
-    return transformer.train_loss(cfg, params, batch["tokens"], rules, msize)
+    """Next-token CE over ``batch["tokens"]`` [B, S+1]; the forward
+    value."""
+    tokens = batch["tokens"]
+    inp, tgt = tokens[:, :-1], tokens[:, 1:]
+    if cfg.family == "rwkv":
+        hid, _ = rwkv6.rwkv_backbone(cfg, params, inp, rules)
+    elif cfg.family == "hybrid":
+        hid, _ = zamba2.forward(cfg, params, inp, rules=rules, msize=msize,
+                                mode="train")
+    elif cfg.family == "vlm":
+        hid, _ = vision.forward(cfg, params, inp, batch["img_embed"],
+                                rules=rules, msize=msize, mode="train")
+    elif cfg.family == "audio":
+        hid, _ = whisper.forward(cfg, params, inp, batch["frames"],
+                                 rules=rules, msize=msize, mode="train")
+    else:
+        return transformer.train_loss(cfg, params, tokens, rules, msize)
+    return chunked_ce_loss(cfg, hid, _head(params), tgt, rules)
 
 
 def prefill(cfg: ModelConfig, params, batch, rules=None, msize: int = 1,
             cache_len: Optional[int] = None):
-    _dense(cfg)
-    return transformer.prefill(cfg, params, batch["tokens"], rules, msize,
-                               cache_len=cache_len)
+    """Process the prompts ``batch["tokens"]`` [B, S]; returns (last
+    logits [B, V] float32, cache).  The attention caches are padded to
+    ``cache_len`` (default S)."""
+    tokens = batch["tokens"]
+    if cfg.family == "rwkv":
+        hid, state = rwkv6.rwkv_backbone(cfg, params, tokens, rules)
+        return _logits_last(params, hid), {"state": state}
+    if cfg.family == "hybrid":
+        hid, cache = zamba2.forward(cfg, params, tokens, rules=rules,
+                                    msize=msize, mode="prefill",
+                                    cache_len=cache_len)
+    elif cfg.family == "vlm":
+        hid, cache = vision.forward(cfg, params, tokens, batch["img_embed"],
+                                    rules=rules, msize=msize, mode="prefill",
+                                    cache_len=cache_len)
+    elif cfg.family == "audio":
+        hid, cache = whisper.forward(cfg, params, tokens, batch["frames"],
+                                     rules=rules, msize=msize,
+                                     mode="prefill", cache_len=cache_len)
+    else:
+        return transformer.prefill(cfg, params, tokens, rules, msize,
+                                   cache_len=cache_len)
+    return _logits_last(params, hid), cache
 
 
 def decode_step(cfg: ModelConfig, params, batch, cache, pos, rules=None,
                 msize: int = 1):
-    _dense(cfg)
-    return transformer.decode_step(cfg, params, batch["tokens"], cache, pos,
-                                   rules, msize)
+    """One token ``batch["tokens"]`` [B, 1] at position ``pos`` (a scalar;
+    a 0-d tensor is read on the device).  Returns (logits [B, V] float32,
+    new cache)."""
+    token = batch["tokens"]
+    if cfg.family == "rwkv":
+        hid, state = rwkv6.rwkv_backbone(cfg, params, token, rules,
+                                         state=cache["state"])
+        return _logits_last(params, hid), {"state": state}
+    if cfg.family == "hybrid":
+        hid, cache = zamba2.forward(cfg, params, token, rules=rules,
+                                    msize=msize, mode="decode", cache=cache,
+                                    pos=pos)
+    elif cfg.family == "vlm":
+        hid, cache = vision.forward(cfg, params, token, None, rules=rules,
+                                    msize=msize, mode="decode", cache=cache,
+                                    pos=pos)
+    elif cfg.family == "audio":
+        hid, cache = whisper.forward(cfg, params, token, None, rules=rules,
+                                     msize=msize, mode="decode", cache=cache,
+                                     pos=pos)
+    else:
+        return transformer.decode_step(cfg, params, token, cache, pos,
+                                       rules, msize)
+    return _logits_last(params, hid), cache
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -84,23 +144,38 @@ def _tensor(a, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a)).to(device)
 
 
+class _ShapeOnly(torch.Generator):
+    """A CPU generator whose draws land on the ``meta`` device: the
+    family's init then builds the parameter tree's shapes, allocating
+    nothing."""
+
+    @property
+    def device(self):
+        return torch.device("meta")
+
+
+def _check_shapes(cfg, got, want, path="") -> None:
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or set(got) != set(want):
+            raise ValueError(
+                f"{cfg.name}: parameters {path or '(root)'} should hold "
+                f"{sorted(want)}, got "
+                f"{sorted(got) if isinstance(got, dict) else type(got)}")
+        for k in want:
+            _check_shapes(cfg, got[k], want[k], f"{path}/{k}" if path else k)
+    elif tuple(got.shape) != tuple(want.shape):
+        raise ValueError(f"{cfg.name}: parameter {path!r} should be "
+                         f"{tuple(want.shape)}, got {tuple(got.shape)}")
+
+
 def params_from_numpy(cfg: ModelConfig, tree, device="cuda"
                       ) -> Dict[str, Any]:
     """The reference's parameter pytree (nested dicts of numpy arrays,
     e.g. ``jax.tree.map(np.asarray, params)``) as the port's tensors on
-    ``device``, checked against ``cfg``'s shapes."""
-    _dense(cfg)
+    ``device``, checked against the keys and shapes of ``cfg``'s
+    parameters (every family: rwkv's stacked blocks, zamba2's
+    ``super``/``shared``/``tail``, vision's ``plain``/``cross``, whisper's
+    ``enc``/``dec``/``enc_norm``, the experts' ``router``/``moe_w*``)."""
     out = transformer.tree_map(lambda a: _tensor(a, device), dict(tree))
-    want = {"embed": (cfg.vocab, cfg.d_model),
-            "final_norm": (cfg.d_model,)}
-    if not cfg.tie_embed:
-        want["head"] = (cfg.d_model, cfg.vocab)
-    for k, shape in want.items():
-        if k not in out or tuple(out[k].shape) != shape:
-            raise ValueError(f"{cfg.name}: parameter {k!r} should be "
-                             f"{shape}, got "
-                             f"{tuple(out[k].shape) if k in out else None}")
-    if out["blocks"]["norm1"].shape[0] != cfg.n_layers:
-        raise ValueError(f"{cfg.name}: {out['blocks']['norm1'].shape[0]} "
-                         f"stacked layers, the config has {cfg.n_layers}")
+    _check_shapes(cfg, out, init_params(cfg, _ShapeOnly()))
     return out

@@ -1,0 +1,139 @@
+"""Mamba2 (SSD) block, the zamba2 backbone: the port of the reference's
+``models/mamba2.py``.
+
+State-space duality form: per head (head dim P, state N = ssm_state):
+    S_t = a_t * S_{t-1} + x_t (x) B_t          (a_t scalar per head)
+    y_t = S_t C_t + D_skip * x_t
+with a_t = exp(-exp(A_log) * dt_t), dt = softplus(dt_raw + dt_bias) (both
+in float32), and a causal depthwise conv (width 4) on the (x, B, C) stream.
+
+``ssd_scan`` is the recurrence (the decode path); ``ssd_chunked`` the
+chunk-parallel prefill path (chunk 64; as the reference's, a length that
+the chunk does not divide is one chunk, whose ``[B, 1, T, T, H]`` float32
+decay tensor grows with the square of the length).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+from .layers import _no_rules, _full, dense_init, rms_norm
+
+CONV_W = 4
+
+
+def mamba_params(cfg, gen: torch.Generator, dtype) -> Dict[str, Any]:
+    d = cfg.d_model
+    d_in = 2 * d
+    n = cfg.ssm_state
+    hd = cfg.mamba_head_dim
+    nh = d_in // hd
+    conv_ch = d_in + 2 * n
+    return {
+        "norm": _full(gen, (d,), 1.0, dtype),
+        "in_proj": dense_init(gen, (d, 2 * d_in + 2 * n + nh), dtype),
+        "conv_w": dense_init(gen, (CONV_W, conv_ch), dtype, scale=0.5),
+        "conv_b": _full(gen, (conv_ch,), 0.0, dtype),
+        "a_log": _full(gen, (nh,), 0.0, dtype),
+        "dt_bias": _full(gen, (nh,), 0.0, dtype),
+        "d_skip": _full(gen, (nh,), 1.0, dtype),
+        "out_norm": _full(gen, (d_in,), 1.0, dtype),
+        "out_proj": dense_init(gen, (d_in, d), dtype),
+    }
+
+
+def _causal_conv(x, w, b, carry: Optional[torch.Tensor] = None):
+    """Depthwise causal conv, width CONV_W.  x: [B,T,C]; carry: [B,W-1,C]
+    (previous inputs, for decode).  Returns (y, new_carry)."""
+    if carry is None:
+        carry = torch.zeros((x.shape[0], CONV_W - 1, x.shape[2]),
+                            dtype=x.dtype, device=x.device)
+    xp = torch.cat([carry, x], dim=1)                    # [B, T+W-1, C]
+    t = x.shape[1]
+    y = sum(xp[:, i:i + t] * w[i] for i in range(CONV_W)) + b
+    return F.silu(y), xp[:, -(CONV_W - 1):]
+
+
+def ssd_scan(x, b_in, c_in, a, d_skip, state0):
+    """x: [B,T,H,P]; b_in/c_in: [B,T,N]; a: [B,T,H]; state0: [B,H,P,N].
+    Returns (y [B,T,H,P], state), both in x's dtype."""
+    s = state0.float()
+    ys = []
+    for t in range(x.shape[1]):
+        xt, bt, ct, at = (z[:, t].float() for z in (x, b_in, c_in, a))
+        s = at[..., None, None] * s + torch.einsum("bhp,bn->bhpn", xt, bt)
+        ys.append(torch.einsum("bhpn,bn->bhp", s, ct))
+    y = torch.stack(ys, dim=1) + d_skip[None, None, :, None] * x
+    return y.to(x.dtype), s.to(x.dtype)
+
+
+def ssd_chunked(x, b_in, c_in, a, d_skip, state0, chunk: int = 64):
+    """Chunk-parallel SSD; equal to ``ssd_scan`` within rounding."""
+    b, t, h, p = x.shape
+    n = b_in.shape[-1]
+    if t % chunk:
+        chunk = t
+    nc = t // chunk
+    xc = x.reshape(b, nc, chunk, h, p).float()
+    bc = b_in.reshape(b, nc, chunk, n).float()
+    cc = c_in.reshape(b, nc, chunk, n).float()
+    la = torch.log(torch.clamp(a.reshape(b, nc, chunk, h), min=1e-20)).float()
+    lcum = torch.cumsum(la, dim=2)                       # inclusive
+    ltot = lcum[:, :, -1]                                # [b,nc,h]
+
+    # intra: y_t = sum_{s<=t} e^{L_t - L_s} (C_t.B_s) x_s
+    dec = lcum[:, :, :, None, :] - lcum[:, :, None, :, :]   # [b,c,t,s,h]
+    tri = torch.ones((chunk, chunk), dtype=torch.bool,
+                     device=x.device).tril()                # inclusive
+    dec = torch.where(tri[None, None, :, :, None], dec, float("-inf"))
+    cb = torch.einsum("bctn,bcsn->bcts", cc, bc)
+    att = torch.exp(dec) * cb[..., None]                    # [b,c,t,s,h]
+    intra = torch.einsum("bctsh,bcshp->bcthp", att, xc)
+
+    # inter-chunk carried state; C_t e^{L_t}: [b,c,t,h,n]
+    q_dec = torch.exp(lcum)[..., None] * cc[:, :, :, None, :]
+    k_end = torch.exp(ltot[:, :, None] - lcum)[..., None] * \
+        bc[:, :, :, None, :]                                # [b,c,t,h,n]
+
+    s = state0.float()
+    inter = []
+    for c in range(nc):
+        inter.append(torch.einsum("bthn,bhpn->bthp", q_dec[:, c], s))
+        snew = torch.einsum("bthp,bthn->bhpn", xc[:, c], k_end[:, c])
+        s = torch.exp(ltot[:, c])[..., None, None] * s + snew
+    y = (intra + torch.stack(inter, dim=1)).reshape(b, t, h, p) + \
+        d_skip[None, None, :, None] * x.float()
+    return y.to(x.dtype), s.to(x.dtype)
+
+
+def mamba_block(cfg, p, x, *, rules=None, state=None, use_chunked=True):
+    """x: [B,T,D].  state = (ssm [B,H,P,N], conv [B,W-1,C]) or None.
+    Returns (x, new_state); the ssm state in x's dtype."""
+    _no_rules(rules)
+    bsz, t, d = x.shape
+    d_in = 2 * d
+    n = cfg.ssm_state
+    hd = cfg.mamba_head_dim
+    nh = d_in // hd
+    ssm_s, conv_s = state if state is not None else (None, None)
+
+    h = rms_norm(x, p["norm"], cfg.norm_eps)
+    zxbcdt = h @ p["in_proj"]
+    z, xbc, dt = torch.split(zxbcdt, [d_in, d_in + 2 * n, nh], dim=-1)
+    xbc, conv_s = _causal_conv(xbc, p["conv_w"], p["conv_b"], conv_s)
+    xc, b_in, c_in = torch.split(xbc, [d_in, n, n], dim=-1)
+    v = dt.float() + p["dt_bias"]
+    dt_ = torch.logaddexp(v, torch.zeros((), device=x.device))  # softplus
+    a = torch.exp(-torch.exp(p["a_log"].float()) * dt_)
+    xh = (xc * dt_.repeat_interleave(hd, dim=-1)).reshape(bsz, t, nh, hd)
+    if ssm_s is None:
+        ssm_s = torch.zeros((bsz, nh, hd, n), dtype=x.dtype, device=x.device)
+    if t == 1 or not use_chunked:
+        y, ssm_s = ssd_scan(xh, b_in, c_in, a, p["d_skip"], ssm_s)
+    else:
+        y, ssm_s = ssd_chunked(xh, b_in, c_in, a, p["d_skip"], ssm_s)
+    y = y.reshape(bsz, t, d_in)
+    y = (rms_norm(y, p["out_norm"], cfg.norm_eps) * F.silu(z)).to(x.dtype)
+    return x + y @ p["out_proj"], (ssm_s.to(x.dtype), conv_s)

@@ -10,7 +10,8 @@ The layer stack is stored stacked (``params["blocks"]``: every leaf with a
 leading ``L`` axis) as the reference's scan carries it, and run as a
 Python loop over the layers.  ``train_loss`` computes the forward value
 (no remat or custom backward: training is a later slice).  A config with
-``moe=True`` raises until ``models/moe.py`` is ported.
+``moe=True`` takes the mixture-of-experts FFN (``models/moe.py``) in place
+of the MLP, as the reference's ``_ffn``.
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from . import moe as moe_lib
 from .config import ModelConfig
 from .layers import (_no_rules, attention, attention_params, dense_init,
                      mlp, mlp_params, rms_norm)
@@ -29,14 +31,6 @@ def _dt(cfg) -> torch.dtype:
 
 def _act_dt(cfg) -> torch.dtype:
     return getattr(torch, cfg.act_dtype)
-
-
-def _no_moe(cfg: ModelConfig) -> None:
-    if cfg.moe:
-        raise NotImplementedError(
-            f"{cfg.name}: mixture-of-experts blocks need models/moe.py, "
-            f"which is not ported yet (ROADMAP Queue 1, LM substrate item "
-            f"(a): moe with expert dispatch)")
 
 
 def tree_map(fn, tree):
@@ -59,12 +53,14 @@ def layer(blocks: Dict[str, Any], i: int) -> Dict[str, Any]:
 
 def block_params(cfg: ModelConfig, gen: torch.Generator,
                  cross: bool = False) -> Dict[str, Any]:
-    _no_moe(cfg)
     dt = _dt(cfg)
     ones = torch.ones((cfg.d_model,), dtype=dt, device=gen.device)
     p = {"norm1": ones, "norm2": ones.clone(),
-         "attn": attention_params(cfg, gen, dt),
-         "mlp": mlp_params(cfg, gen, dt)}
+         "attn": attention_params(cfg, gen, dt)}
+    if cfg.moe:
+        p["moe"] = moe_lib.moe_params(cfg, gen, dt)
+    else:
+        p["mlp"] = mlp_params(cfg, gen, dt)
     if cross:
         p["norm_x"] = ones.clone()
         p["xattn"] = attention_params(cfg, gen, dt)
@@ -75,7 +71,6 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> Dict[str, Any]:
     """Random parameters from ``gen`` (on ``gen``'s device): the layer
     blocks in order, then the embedding, then the separate head unless the
     embedding is tied."""
-    _no_moe(cfg)
     dt = _dt(cfg)
     blocks = _stack([block_params(cfg, gen) for _ in range(cfg.n_layers)])
     p = {"embed": dense_init(gen, (cfg.vocab, cfg.d_model), dt, scale=0.02),
@@ -87,6 +82,12 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> Dict[str, Any]:
     return p
 
 
+def _ffn(cfg, bp, x, rules):
+    if cfg.moe:
+        return moe_lib.moe_ffn(cfg, bp["moe"], x, rules)
+    return mlp(cfg, bp["mlp"], x, rules)
+
+
 def _block(cfg, bp, x, *, rules=None, msize: int = 1, cache=None,
            pos=None):
     """Pre-norm transformer block.  Returns (x, new_cache)."""
@@ -95,7 +96,7 @@ def _block(cfg, bp, x, *, rules=None, msize: int = 1, cache=None,
                              model_size=msize, cache=cache, pos=pos)
     x = x + a
     h = rms_norm(x, bp["norm2"], cfg.norm_eps)
-    x = x + mlp(cfg, bp["mlp"], h, rules)
+    x = x + _ffn(cfg, bp, h, rules)
     return x, new_cache
 
 
@@ -129,7 +130,6 @@ def train_loss(cfg: ModelConfig, params, tokens: torch.Tensor, rules=None,
                msize: int = 1) -> torch.Tensor:
     """Next-token CE over tokens [B, S+1] (targets = tokens shifted); the
     forward value."""
-    _no_moe(cfg)
     inp, tgt = tokens[:, :-1], tokens[:, 1:]
     x = _embed(cfg, params, inp)
     for i in range(cfg.n_layers):
@@ -145,7 +145,6 @@ def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, rules=None,
     kv caches).  The caches are ``[L, B, cache_len, Hkv, dh]`` (cache_len
     defaults to the prompt length; a larger one leaves zero rows for
     decode steps)."""
-    _no_moe(cfg)
     b, s = tokens.shape
     cl = cache_len or s
     x = _embed(cfg, params, tokens)
@@ -170,7 +169,6 @@ def decode_step(cfg: ModelConfig, params, token: torch.Tensor, cache,
     """One decode step.  token: [B, 1]; cache k/v: [L, B, S, Hkv, dh];
     pos: scalar (current length; a 0-d tensor is read on the device).
     Returns (logits [B, V] float32, new cache)."""
-    _no_moe(cfg)
     x = _embed(cfg, params, token)
     ks, vs = [], []
     for i in range(cfg.n_layers):

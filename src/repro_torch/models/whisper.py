@@ -1,0 +1,92 @@
+"""Whisper-style encoder-decoder audio backbone (whisper-tiny config), the
+port of the reference's ``models/whisper.py``.
+
+The conv frontend is a stub, as the reference's: the batch holds
+precomputed frame embeddings ``frames`` [B, n_frames, d_model].  The
+encoder is bidirectional self-attention; each decoder layer runs causal
+self-attention, the MLP, then cross-attention to the encoder output
+(rotary positions, as the reference's, instead of Whisper's learned
+absolute embeddings).  The prefill caches each layer's cross K/V
+(``k_cross``/``v_cross`` [L, B, n_frames, Hkv, dh]); decode takes no
+frames.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+from .config import ModelConfig
+from .layers import _full, attention, dense_init, mlp, rms_norm
+from .transformer import (_block as tf_block, _dt, _embed, _stack,
+                          block_params, layer)
+
+
+def init_params(cfg: ModelConfig, gen: torch.Generator) -> Dict[str, Any]:
+    """Random parameters from ``gen``: the encoder layers, the decoder
+    layers, the embedding and the head."""
+    dt = _dt(cfg)
+    enc = [block_params(cfg, gen) for _ in range(cfg.enc_layers)]
+    dec = [block_params(cfg, gen, cross=True) for _ in range(cfg.n_layers)]
+    return {
+        "enc": _stack(enc),
+        "dec": _stack(dec),
+        "embed": dense_init(gen, (cfg.vocab, cfg.d_model), dt, scale=0.02),
+        "enc_norm": _full(gen, (cfg.d_model,), 1.0, dt),
+        "final_norm": _full(gen, (cfg.d_model,), 1.0, dt),
+        "head": dense_init(gen, (cfg.d_model, cfg.vocab), dt, scale=0.02),
+    }
+
+
+def encode(cfg, params, frames, *, rules=None, msize=1):
+    """frames: [B, n_frames, D] stub embeddings -> encoder output."""
+    x = frames.to(getattr(torch, cfg.act_dtype))
+    for i in range(cfg.enc_layers):
+        bp = layer(params["enc"], i)
+        h = rms_norm(x, bp["norm1"], cfg.norm_eps)
+        a, _ = attention(cfg, bp["attn"], h, rules=rules, model_size=msize,
+                         causal=False)
+        x = x + a
+        h = rms_norm(x, bp["norm2"], cfg.norm_eps)
+        x = x + mlp(cfg, bp["mlp"], h, rules)
+    return rms_norm(x, params["enc_norm"], cfg.norm_eps)
+
+
+def forward(cfg: ModelConfig, params, tokens, frames, *, rules=None,
+            msize=1, mode="train", cache=None, pos=None,
+            cache_len: Optional[int] = None):
+    """Returns (normed decoder hidden, cache or None)."""
+    bsz, t = tokens.shape
+    decode = mode == "decode"
+    enc_out = None if decode else encode(cfg, params, frames, rules=rules,
+                                         msize=msize)
+    x = _embed(cfg, params, tokens)
+    ks, vs, kxs, vxs = [], [], [], []
+    for i in range(cfg.n_layers):
+        bp = layer(params["dec"], i)
+        c = (cache["k"][i], cache["v"][i]) if decode else None
+        x, kv = tf_block(cfg, bp, x, rules=rules, msize=msize, cache=c,
+                         pos=pos if decode else None)
+        h = rms_norm(x, bp["norm_x"], cfg.norm_eps)
+        if decode:
+            xkv = (cache["k_cross"][i], cache["v_cross"][i])
+            a, _ = attention(cfg, bp["xattn"], h, rules=rules,
+                             model_size=msize, rope=False, cache=xkv,
+                             static_cache=True)
+        else:
+            a, xkv = attention(cfg, bp["xattn"], h, rules=rules,
+                               model_size=msize, x_kv=enc_out, rope=False,
+                               causal=False)
+        x = x + a
+        for acc, z in zip((ks, vs, kxs, vxs), (*kv, *xkv)):
+            acc.append(z)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    if mode == "train":
+        return x, None
+    ks, vs = torch.stack(ks), torch.stack(vs)
+    if mode == "prefill" and cache_len and cache_len > t:
+        pad = (0, 0, 0, 0, 0, cache_len - t)
+        ks, vs = F.pad(ks, pad), F.pad(vs, pad)
+    return x, {"k": ks, "v": vs, "k_cross": torch.stack(kxs),
+               "v_cross": torch.stack(vxs)}

@@ -12,8 +12,8 @@ of the reference's.  Also: ``flash_attention`` against naive attention and
 the reference's; prefill + 1 decode against a prefill of the extended
 sequence (the reference's consistency test); ``BatchedServer.serve``
 returns the reference's greedy tokens on its ``main()`` inputs; the
-configurations equal the reference's field for field; the other families
-and MoE raise.
+configurations equal the reference's field for field.  The other families
+and MoE are held to the reference in ``test_torch_lm_families.py``.
 
 JAX is imported inside fixtures and helpers only.
 """
@@ -295,17 +295,6 @@ def test_registry_equals_reference():
     assert {k: dataclasses.asdict(v) for k, v in cbase.SHAPES.items()} == \
         {k: dataclasses.asdict(v) for k, v in rbase.SHAPES.items()}
     assert cbase.get_config("qwen3-0.6b") is cbase.get_config("qwen3_0_6b")
-
-
-@pytest.mark.parametrize("arch", ["rwkv6_7b", "zamba2_7b", "whisper_tiny",
-                                  "llama_3_2_vision_11b",
-                                  "qwen3_moe_30b_a3b", "grok_1_314b"])
-def test_other_families_raise(arch):
-    cfg = _reduced(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        api.init_params(cfg, 0, "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        api.prefill(cfg, {}, {"tokens": torch.zeros(1, 4, dtype=torch.long)})
 
 
 def test_init_params_shapes_and_bf16_carry():
