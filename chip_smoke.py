@@ -148,7 +148,16 @@ cut (``LMFAM_DEPTH``), each served by ``BatchedServer`` (8 prompts of 128
 tokens, 32 new tokens a request, in vocab; prefill, decode, tokens/s,
 peak memory, a decode step's idle share), prefill + k decode steps
 against a prefill of s + k tokens in float32 with seeded nonzero stub
-inputs (1e-3), and the MoE's dropped choices; no kernel runs there.
+inputs (1e-3), and the MoE's dropped choices; no kernel runs there; and
+training (``[train]``): ``launch.train.train`` on qwen3-0.6b at full
+width and depth in bfloat16 (float32 AdamW moments, PowerSGD rank 4), 6
+steps of 4 x 4,096 tokens (ms a step, tokens/s, peak memory, every
+step's loss and gradient norm, the step's parts by CUDA events and its
+idle share), after its card checks: the attention backward against
+naive autograd at qwen3's head shapes (2e-4), every config's reduced
+float32 gradients on the card against the CPU's (1e-4), a restart drill
+(1 restart, the uninterrupted loss history) and the full parameter tree
+through ``CheckpointManager`` (bitwise); no kernel runs there either.
 Launch counts are reset just before each path and read just after (graph
 replays launch kernels without their wrappers: logged apart).
 Any failure raises; the last line is the device JSON only on success.
@@ -4956,6 +4965,364 @@ def lmfam_phase(torch, timer, device: str = "cuda", reduced: bool = False,
     return dict(families=fams, phase_s=t_phase, launches=launches)
 
 
+# ---------------------------------------------------------------------------
+# train phase: qwen3-0.6b trained at full width and depth
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "qwen3-0.6b"
+TRAIN_SEED = 0
+TRAIN_SEQ = 4096                # the reference's train_4k sequence length
+TRAIN_BATCH = 4                 # micro-batch: 16,384 tokens a step
+TRAIN_STEPS = 6
+TRAIN_FLASH = (1, 4096, 16, 8, 128)     # B, S, H, Hkv, hd: qwen3's heads
+TRAIN_FLASH_TOL = 2e-4          # of each gradient's largest entry
+TRAIN_GRAD_TOL = 1e-4           # reduced configs: the card vs the CPU
+TRAIN_GRAD_SEQ = 128            # 8 RWKV chunks, 2 SSD chunks, 4 KV blocks
+TRAIN_RESTART = dict(steps=6, global_batch=4, seq_len=64, use_psgd=True)
+TRAIN_CKPT_EVERY = 2
+TRAIN_FAIL_AT = 3
+
+
+def _loss_grads(torch, cfg, params, batch) -> tuple:
+    """``train_loss`` and the gradient of every parameter leaf."""
+    from repro_torch.models import api
+    from repro_torch.optim.adamw import tree_leaves, tree_unflatten
+    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+    loss = api.train_loss(cfg, tree_unflatten(params, leaves), batch)
+    return loss.detach(), torch.autograd.grad(loss, leaves)
+
+
+def _train_flash_check(torch, device: str, shape: tuple, cfg) -> dict:
+    """``flash_attention``'s backward (causal, the config's blocks) against
+    plain autograd through naive softmax attention, float32, at ``shape``
+    (B, S, H, Hkv, hd); both timed (host clock, synchronised)."""
+    from repro_torch.models import layers
+    b, s, h, hkv, hd = shape
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    gen = torch.Generator(device=device).manual_seed(TRAIN_SEED)
+
+    def draw(*sh):
+        return torch.randn(sh, generator=gen, device=device)
+    q, k, v = draw(b, s, h, hd), draw(b, s, hkv, hd), draw(b, s, hkv, hd)
+    dout = draw(b, s, h, hd)
+
+    def flash(q_, k_, v_):
+        return layers.flash_attention(q_, k_, v_, causal=True,
+                                      block_q=cfg.flash_block_q,
+                                      block_kv=cfg.flash_block_kv)
+
+    def naive(q_, k_, v_):
+        g = h // hkv
+        sc = torch.einsum("bshgd,bthd->bhgst", q_.reshape(b, s, hkv, g, hd),
+                          k_) / math.sqrt(hd)
+        mask = torch.ones((s, s), dtype=torch.bool, device=device).tril()
+        p = torch.softmax(sc.masked_fill(~mask, float("-inf")), dim=-1)
+        return torch.einsum("bhgst,bthd->bshgd", p, v_).reshape(b, s, h, hd)
+
+    out = {}
+    for name, fn in (("flash", flash), ("naive", naive)):
+        for rep in range(2):            # the second call is timed
+            ins = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+            sync()
+            t0 = time.perf_counter()
+            grads = torch.autograd.grad(fn(*ins), ins, dout)
+            sync()
+            out[name + "_ms"] = (time.perf_counter() - t0) * 1e3
+        out[name] = grads
+    errs = [float((g - w).abs().max() / w.abs().max())
+            for g, w in zip(out["flash"], out["naive"])]
+    return dict(errs=errs, flash_ms=out["flash_ms"],
+                naive_ms=out["naive_ms"])
+
+
+def _train_config_checks(torch, device: str) -> dict:
+    """Every config at ``reduced(float32)``: loss and gradients on
+    ``device`` against the port on the CPU (relative L2 per leaf)."""
+    import numpy as np
+
+    from repro_torch.configs.base import ARCHS, get_config
+    from repro_torch.models import api
+    from repro_torch.models.transformer import tree_map
+    out = {}
+    for arch in ARCHS:
+        cfg = get_config(arch).reduced(param_dtype="float32",
+                                       act_dtype="float32")
+        params = api.init_params(cfg, TRAIN_SEED, "cpu")
+        rng = np.random.default_rng(TRAIN_SEED)
+        batch = {"tokens": torch.from_numpy(rng.integers(
+            0, cfg.vocab, (2, TRAIN_GRAD_SEQ + 1)))}
+        for key, n, fam in (("img_embed", cfg.n_img_tokens, "vlm"),
+                            ("frames", cfg.n_frames, "audio")):
+            if cfg.family == fam:
+                batch[key] = torch.from_numpy(rng.standard_normal(
+                    (2, n, cfg.d_model)).astype(np.float32))
+        loss_c, grads_c = _loss_grads(torch, cfg, params, batch)
+        loss_d, grads_d = _loss_grads(
+            torch, cfg, tree_map(lambda t: t.to(device), params),
+            {k: v.to(device) for k, v in batch.items()})
+        loss_err = abs(float(loss_d) - float(loss_c)) / abs(float(loss_c))
+        grad_err = max(float((g.cpu() - w).norm() / w.norm())
+                       for g, w in zip(grads_d, grads_c))
+        out[arch] = dict(loss=float(loss_c), loss_err=loss_err,
+                         grad_err=grad_err, leaves=len(grads_c))
+    return out
+
+
+def _train_restart_check(torch, device: str) -> dict:
+    """A reduced ``train()`` with checkpoints under ``build/`` and a
+    ``FailureInjector`` against the uninterrupted run."""
+    import shutil
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.train import train
+    from repro_torch.runtime.fault import FailureInjector
+    cfg = get_config(TRAIN_ARCH).reduced(param_dtype="float32",
+                                         act_dtype="float32")
+    kw = dict(TRAIN_RESTART, device=device, log_every=100)
+    plain = train(cfg, **kw)
+    ckpt = OBS_DIR / "train_restart_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    hurt = train(cfg, ckpt_dir=str(ckpt), ckpt_every=TRAIN_CKPT_EVERY,
+                 injector=FailureInjector({TRAIN_FAIL_AT: "device lost"}),
+                 **kw)
+    shutil.rmtree(ckpt, ignore_errors=True)
+    resume = (TRAIN_FAIL_AT // TRAIN_CKPT_EVERY) * TRAIN_CKPT_EVERY
+    want = plain["loss"][:TRAIN_FAIL_AT] + plain["loss"][resume:]
+    return dict(restarts=hurt["restarts"], plain=plain["loss"],
+                hurt=hurt["loss"], same=hurt["loss"] == want)
+
+
+def _train_breakdown(torch, timer, cfg, params, device: str) -> dict:
+    """The step's parts at its shapes, by CUDA events: one layer's
+    attention forward and backward ([B, S] of the step, bfloat16 in and
+    out, float32 tiles), the chunked CE forward + backward, and PowerSGD
+    + AdamW over the whole state (random gradients)."""
+    from repro_torch.launch.train import OPT_CFG, PSGD_CFG
+    from repro_torch.models import layers
+    from repro_torch.models.transformer import _head, chunked_ce_loss
+    from repro_torch.optim import adamw, grad_compress
+    gen = torch.Generator(device=device).manual_seed(TRAIN_SEED)
+    b, s, dt = TRAIN_BATCH, TRAIN_SEQ, torch.bfloat16
+
+    def draw(*sh):
+        return torch.randn(sh, generator=gen, device=device).to(dt)
+    q = draw(b, s, cfg.n_heads, cfg.hd).requires_grad_(True)
+    k = draw(b, s, cfg.n_kv_heads, cfg.hd).requires_grad_(True)
+    v = draw(b, s, cfg.n_kv_heads, cfg.hd).requires_grad_(True)
+
+    def attn():
+        return layers.flash_attention(q, k, v, causal=True,
+                                      block_q=cfg.flash_block_q,
+                                      block_kv=cfg.flash_block_kv)
+    with torch.no_grad():
+        fwd_ms = timer.ms(attn, reps=2, warmup=1)
+    out = attn()
+    dout = torch.ones_like(out)
+    bwd_ms = timer.ms(lambda: torch.autograd.grad(out, (q, k, v), dout,
+                                                  retain_graph=True),
+                      reps=2, warmup=1)
+    del out
+    hid = draw(b, s, cfg.d_model).requires_grad_(True)
+    head = _head(params)
+    tgt = torch.randint(0, cfg.vocab, (b, s), generator=gen, device=device)
+
+    def ce():
+        loss = chunked_ce_loss(cfg, hid, head, tgt)
+        torch.autograd.grad(loss, (hid,))
+    ce_ms = timer.ms(ce, reps=2, warmup=1)
+    grads = adamw.tree_map(lambda p: torch.randn(
+        p.shape, generator=gen, device=device).to(p.dtype) * 1e-3, params)
+    opt = adamw.init_state(OPT_CFG, params)
+    psgd = grad_compress.init_state(PSGD_CFG, params, TRAIN_SEED)
+
+    def update():
+        g, _ = grad_compress.compress_and_reduce(PSGD_CFG, grads, psgd)
+        adamw.apply_updates(OPT_CFG, params, g, opt, 0.5)
+    with torch.no_grad():
+        opt_ms = timer.ms(update, reps=2, warmup=1)
+    del grads, opt, psgd
+    return dict(attn_fwd_ms=fwd_ms, attn_bwd_ms=bwd_ms, ce_ms=ce_ms,
+                opt_ms=opt_ms,
+                attn_step_ms=cfg.n_layers * (2 * fwd_ms + bwd_ms))
+
+
+def train_phase(torch, timer, device: str = "cuda", reduced: bool = False,
+                card: str = "") -> dict:
+    """The training path (``launch/train.py``): ``train()`` runs
+    ``qwen3-0.6b`` at full width and depth (28 layers, d 1,024, 16/8 heads
+    of 128, vocab 151,936, tied embedding, bfloat16, float32 AdamW
+    moments) for 6 steps of 4 x 4,096 tokens (``SyntheticLM`` seed 0, the
+    reference's train_4k length; its global batch of 256 is the 512-chip
+    mesh's), PowerSGD rank 4 on, no checkpoints: ms a step (median of steps
+    2-6), tokens/s, peak memory, every step's loss and gradient norm
+    (finite), the launches of the five kernels (none); the step's parts
+    by CUDA events and the device's idle share over one traced step.
+    Card checks: ``flash_attention``'s backward against plain autograd
+    through naive attention at qwen3's head shapes (B 1, S 4,096, float32,
+    2e-4 of each gradient's max); every config at ``reduced(float32)``,
+    loss and gradients on the card within 1e-4 of the CPU's; a reduced
+    ``train()`` with checkpoints under ``build/`` and a failure at step 3
+    (1 restart, the loss history of the uninterrupted run); the full
+    parameter tree saved by ``CheckpointManager`` and restored bitwise.
+    ``reduced`` rehearses it on the CPU at the reduced config."""
+    import shutil
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch.train import (OPT_CFG, PSGD_CFG,
+                                          build_train_step,
+                                          init_train_state,
+                                          make_train_batch, train)
+    from repro_torch.optim.adamw import tree_leaves
+
+    t_phase = time.perf_counter()
+    on_card = device == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    cfg = get_config(TRAIN_ARCH)
+    seq, batch, flash_shape = TRAIN_SEQ, TRAIN_BATCH, TRAIN_FLASH
+    if reduced:
+        cfg = cfg.reduced()
+        seq, flash_shape = 64, (1, 256, 4, 2, 32)
+    else:
+        require((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                 cfg.hd, cfg.d_ff, cfg.vocab, cfg.tie_embed,
+                 cfg.param_dtype) ==
+                (28, 1024, 16, 8, 128, 3072, 151936, True, "bfloat16"),
+                f"[train] {TRAIN_ARCH} is not the full config: {cfg}")
+
+    # card checks
+    t0 = time.perf_counter()
+    fl = _train_flash_check(torch, device, flash_shape, cfg)
+    log(f"[train] flash_attention backward vs plain autograd through naive "
+        f"softmax attention (B, S, H, Hkv, hd = {flash_shape}, causal, "
+        f"blocks {cfg.flash_block_q}/{cfg.flash_block_kv}, float32): dq, "
+        f"dk, dv max error / max |grad| {fl['errs'][0]:.3e}, "
+        f"{fl['errs'][1]:.3e}, {fl['errs'][2]:.3e} (tol "
+        f"{TRAIN_FLASH_TOL:g}); forward + backward {fl['flash_ms']:.1f} ms "
+        f"against naive {fl['naive_ms']:.1f} ms (host clock, synchronised)")
+    require(max(fl["errs"]) <= TRAIN_FLASH_TOL,
+            f"[train] flash backward error {fl['errs']}")
+    checks = _train_config_checks(torch, device)
+    for arch, r in checks.items():
+        log(f"[train] {arch} reduced float32, S {TRAIN_GRAD_SEQ}: loss "
+            f"{r['loss']:.6f}, {device} vs the CPU: loss {r['loss_err']:.3e}"
+            f", worst of {r['leaves']} gradient leaves {r['grad_err']:.3e} "
+            f"(tol {TRAIN_GRAD_TOL:g})")
+        require(r["loss_err"] <= TRAIN_GRAD_TOL and
+                r["grad_err"] <= TRAIN_GRAD_TOL,
+                f"[train] {arch} gradients on {device} vs the CPU: {r}")
+    rs = _train_restart_check(torch, device)
+    log(f"[train] reduced train() with checkpoints every "
+        f"{TRAIN_CKPT_EVERY} steps and a failure at step {TRAIN_FAIL_AT}: "
+        f"restarts {rs['restarts']}, losses {rs['hurt']} against the "
+        f"uninterrupted {rs['plain']}: replayed history equal "
+        f"{rs['same']}")
+    require(rs["restarts"] == 1 and rs["same"],
+            f"[train] restart drill: {rs}")
+    t_checks = time.perf_counter() - t0
+
+    # the slice at full width
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    start = tally_start()
+    sync()
+    t0 = time.perf_counter()
+    hist = train(cfg, steps=TRAIN_STEPS, global_batch=batch, seq_len=seq,
+                 seed=TRAIN_SEED, use_psgd=True, device=device, log_every=1)
+    sync()
+    t_train = time.perf_counter() - t0
+    launches, _, _ = launches_that_ran(start)
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    step_ms = statistics.median(hist["step_s"][1:]) * 1e3
+    tokens = batch * seq
+    what = "reduced" if reduced else "full width and depth"
+    log(f"[train] {TRAIN_ARCH} {what} ({cfg.n_layers} layers, d {cfg.d_model}, {cfg.n_heads}/"
+        f"{cfg.n_kv_heads} heads of {cfg.hd}, vocab {cfg.vocab}, "
+        f"{cfg.param_dtype}, remat {cfg.remat}), PowerSGD rank "
+        f"{PSGD_CFG.rank}, {TRAIN_STEPS} steps of {batch} x {seq} tokens: "
+        f"{step_ms:.1f} ms a step (median of steps 2-{TRAIN_STEPS}; first "
+        f"{hist['step_s'][0] * 1e3:.1f} ms), {tokens / step_ms * 1e3:.0f} "
+        f"tokens/s, peak memory {peak} bytes, train() {t_train:.1f} s; "
+        f"{card}")
+    for i, (loss, gn, dt) in enumerate(zip(hist["loss"], hist["grad_norm"],
+                                           hist["step_s"])):
+        log(f"[train] step {i}: loss {loss:.6f}, grad norm {gn:.6f}, "
+            f"{dt * 1e3:.1f} ms")
+    require(len(hist["loss"]) == TRAIN_STEPS and hist["restarts"] == 0 and
+            all(math.isfinite(x) for x in hist["loss"] + hist["grad_norm"]),
+            f"[train] the run did not give {TRAIN_STEPS} finite steps: "
+            f"{hist}")
+    log(f"[train] launches of the five kernels over train(): {launches} "
+        f"(the training path is plain PyTorch, as the reference's is "
+        f"plain jnp)")
+    require(all(n == 0 for n in launches.values()),
+            f"[train] a kernel launched on the training path: {launches}")
+
+    # where the step's time goes, and the full tree's checkpoint
+    state = init_train_state(cfg, OPT_CFG, TRAIN_SEED, device,
+                             psgd_cfg=PSGD_CFG)
+    parts, idle = None, None
+    if on_card:
+        parts = _train_breakdown(torch, timer, cfg, state.params, device)
+        log(f"[train] the step's parts (CUDA events, L2 flushed): one "
+            f"layer's attention forward {parts['attn_fwd_ms']:.1f} ms, "
+            f"backward {parts['attn_bwd_ms']:.1f} ms, so {cfg.n_layers} x "
+            f"(2 forwards with remat + 1 backward) = "
+            f"{parts['attn_step_ms']:.1f} ms of the {step_ms:.1f} ms step; "
+            f"chunked CE forward + backward {parts['ce_ms']:.1f} ms; "
+            f"PowerSGD + AdamW {parts['opt_ms']:.1f} ms")
+        step_fn = build_train_step(cfg, OPT_CFG, total_steps=TRAIN_STEPS,
+                                   psgd_cfg=PSGD_CFG)
+        data = SyntheticLM(vocab=cfg.vocab, seq_len=seq, global_batch=batch,
+                           seed=TRAIN_SEED)
+        b1 = make_train_batch(cfg, data.batch(1), device)
+        idle = device_idle_share(torch, lambda: step_fn(state, b1),
+                                 OBS_DIR / "train_step_trace.json", reps=1)
+        log(f"[train] one step traced: {idle['device_ops']} device "
+            f"operations, busy {idle['busy_us']:.0f} us of the untraced "
+            f"{idle['untraced_us']:.0f} us: idle share "
+            f"{idle['idle_share_untraced']:.3f} (traced window "
+            f"{idle['window_us']:.0f} us, {idle['idle_share']:.3f}); trace "
+            f"{idle['trace']}")
+    ckpt = OBS_DIR / "train_full_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    mgr = CheckpointManager(str(ckpt), keep=1)
+    sync()
+    t0 = time.perf_counter()
+    mgr.save(0, state.params)
+    t_save = time.perf_counter() - t0
+    nbytes = sum(f.stat().st_size for f in ckpt.rglob("*") if f.is_file())
+    t0 = time.perf_counter()
+    back, _ = mgr.restore(state.params)
+    sync()
+    t_restore = time.perf_counter() - t0
+    same = all(a.dtype == b.dtype and torch.equal(a, b) for a, b in
+               zip(tree_leaves(state.params), tree_leaves(back)))
+    shutil.rmtree(ckpt, ignore_errors=True)
+    n_params = sum(t.numel() for t in tree_leaves(state.params))
+    log(f"[train] the {n_params}-parameter tree ({cfg.param_dtype}) saved "
+        f"by CheckpointManager in {t_save:.2f} s ({nbytes} bytes on disk) "
+        f"and restored in {t_restore:.2f} s: bitwise equal {same}")
+    require(same, "[train] the restored parameters differ")
+    del state, back
+    if on_card:
+        torch.cuda.empty_cache()
+    t_phase = time.perf_counter() - t_phase
+    log(f"[train] phase took {t_phase:.1f} s (checks {t_checks:.1f} s); "
+        f"{card}")
+    return dict(step_ms=step_ms, first_step_ms=hist["step_s"][0] * 1e3,
+                tokens_per_s=tokens / step_ms * 1e3, peak_bytes=peak,
+                loss=hist["loss"], grad_norm=hist["grad_norm"],
+                step_s=hist["step_s"], train_s=t_train, parts=parts,
+                idle=idle, flash=dict(errs=fl["errs"], ms=fl["flash_ms"],
+                                      naive_ms=fl["naive_ms"]),
+                configs=checks, restart=rs, ckpt=dict(
+                    bytes=nbytes, save_s=t_save, restore_s=t_restore),
+                n_params=n_params, launches=launches, phase_s=t_phase)
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -5111,6 +5478,9 @@ def main() -> int:
     lmfam = lmfam_phase(torch, timer, card=smi)
     for name, n in lmfam["launches"].items():
         log(f"[kernels] {name}: {n} launches on the LM families path")
+    trained = train_phase(torch, timer, card=smi)
+    for name, n in trained["launches"].items():
+        log(f"[kernels] {name}: {n} launches on the training path")
     kernels = []
     for name in KERNELS:
         r = results[name]
@@ -5123,7 +5493,8 @@ def main() -> int:
                       sketch["launches"][name] + guard_launches[name] +
                       chaos["launches"][name] + serve["launches"][name] +
                       obs_launches[name] + dserve["launches"][name] +
-                      tserve["launches"][name] + lm["launches"][name]),
+                      tserve["launches"][name] + lm["launches"][name] +
+                      trained["launches"][name]),
             max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"]))
@@ -5167,6 +5538,8 @@ def main() -> int:
                     "dryrun": dry,
                     "lm": {k: v for k, v in lm.items() if k != "launches"},
                     "lmfam": {k: v for k, v in lmfam.items()
+                              if k != "launches"},
+                    "train": {k: v for k, v in trained.items()
                               if k != "launches"},
                     "kernel_detail": detail, "card": smi}))
     log(smi)

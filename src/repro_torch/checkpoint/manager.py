@@ -21,8 +21,14 @@ Guarantees:
 Trees are flattened in the order ``jax.tree_util`` uses: dict keys
 sorted, lists and tuples in order, dataclasses in field order (the
 reference's ``PCGState.tree_flatten`` is its field order ``k, x, r, p, rz,
-res, status``), ``None`` skipped; every other value is a leaf.  Tensors
-are written through ``.detach().cpu().numpy()``.
+res, status``), ``None`` skipped; every other value is a leaf.  A
+``NamedTuple``'s fields, and the fields of a dataclass that sets
+``CKPT_FIELD_PATHS`` (the training state, a ``register_dataclass`` in the
+reference), are named ``.field`` in the leaf paths, as ``jax.tree_util``
+names them.  Tensors are written through ``.detach().cpu().numpy()``;
+bfloat16, which numpy lacks, as its raw 2-byte words under the ``<V2``
+descriptor the reference's ``ml_dtypes`` arrays write, and read back into
+a bfloat16 leaf bit for bit.
 """
 from __future__ import annotations
 
@@ -40,16 +46,20 @@ import torch
 
 def _flatten(tree, path: Tuple[str, ...] = ()) -> List[Tuple[str, Any]]:
     """``(path, leaf)`` pairs in ``jax.tree_util`` order; ``path`` is the
-    reference's ``"/"``-joined key string (dict key, sequence index, or a
-    dataclass field's position)."""
+    reference's ``"/"``-joined key string (dict key, sequence index,
+    ``.field`` of a named tuple or a ``CKPT_FIELD_PATHS`` dataclass, or
+    another dataclass field's position)."""
     if tree is None:
         return []
     if isinstance(tree, dict):
         items = [(str(k), tree[k]) for k in sorted(tree)]
+    elif isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        items = [(f".{f}", getattr(tree, f)) for f in tree._fields]
     elif isinstance(tree, (list, tuple)):
         items = [(str(i), v) for i, v in enumerate(tree)]
     elif dataclasses.is_dataclass(tree) and not isinstance(tree, type):
-        items = [(str(i), getattr(tree, f.name))
+        named = getattr(tree, "CKPT_FIELD_PATHS", False)
+        items = [(f".{f.name}" if named else str(i), getattr(tree, f.name))
                  for i, f in enumerate(dataclasses.fields(tree))]
     else:
         return [("/".join(path), tree)]
@@ -66,6 +76,8 @@ def _unflatten(tree, leaves: Iterator[Any]):
         return None
     if isinstance(tree, dict):
         return {k: _unflatten(tree[k], leaves) for k in sorted(tree)}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*[_unflatten(v, leaves) for v in tree])
     if isinstance(tree, (list, tuple)):
         return type(tree)(_unflatten(v, leaves) for v in tree)
     if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
@@ -75,10 +87,41 @@ def _unflatten(tree, leaves: Iterator[Any]):
     return next(leaves)
 
 
+_BF16_DESCR = "<V2"          # what ml_dtypes' bfloat16 arrays write
+
+
 def _host(leaf) -> np.ndarray:
+    """The leaf on the host; a bfloat16 tensor as its 2-byte words in a
+    ``V2`` array (numpy has no bfloat16)."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
+        t = leaf.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(np.dtype("V2"))
+        return t.numpy()
     return np.asarray(leaf)
+
+
+def _save_leaf(path: str, arr: np.ndarray) -> None:
+    """``np.save``; a ``V2`` array (bfloat16 words) under the reference's
+    ``<V2`` descriptor, so both packages write the same bytes."""
+    if arr.dtype != np.dtype("V2"):
+        np.save(path, arr)
+        return
+    with open(path, "wb") as f:
+        np.lib.format.write_array_header_1_0(f, {
+            "descr": _BF16_DESCR, "fortran_order": False,
+            "shape": arr.shape})
+        f.write(np.ascontiguousarray(arr).tobytes())
+
+
+def _tensor(arr: np.ndarray, like) -> torch.Tensor:
+    """A loaded leaf as a tensor; 2-byte words (``V2``) become bfloat16 bit
+    for bit when ``like`` is bfloat16."""
+    if arr.dtype == np.dtype("V2") and isinstance(like, torch.Tensor) and \
+            like.dtype == torch.bfloat16:
+        return torch.from_numpy(arr.view(np.int16).copy()).view(
+            torch.bfloat16)
+    return torch.as_tensor(arr)
 
 
 @dataclasses.dataclass
@@ -111,7 +154,7 @@ class CheckpointManager:
                 "extra": extra or {},
             }
             for i, arr in enumerate(host):
-                np.save(os.path.join(tmp, f"leaf_{i}.npy"), arr)
+                _save_leaf(os.path.join(tmp, f"leaf_{i}.npy"), arr)
             with open(os.path.join(tmp, "manifest.json"), "w") as f:
                 json.dump(manifest, f)
                 f.flush()
@@ -215,7 +258,7 @@ class CheckpointManager:
             arr = np.load(os.path.join(d, f"leaf_{i}.npy"))
             dev = device if device is not None else (
                 ref.device if isinstance(ref, torch.Tensor) else "cpu")
-            out.append(torch.as_tensor(arr).to(dev))
+            out.append(_tensor(arr, ref).to(dev))
         return _unflatten(tree_like, iter(out)), manifest
 
     def manifest(self, step: int) -> dict:

@@ -12,8 +12,10 @@ every architecture exposes the same entry points.
 reads the cached cross K/V).  The families dispatch on ``cfg.family``:
 ``rwkv`` (``rwkv6``), ``hybrid`` (``zamba2``), ``vlm`` (``vision``),
 ``audio`` (``whisper``) and ``dense`` (``transformer``, with the
-mixture-of-experts FFN where ``cfg.moe``).  ``train_loss`` is the forward
-value (training is a later slice).
+mixture-of-experts FFN where ``cfg.moe``).  ``train_loss`` is
+differentiable (``torch.autograd.grad`` over the parameter leaves, as
+``launch/train.py`` takes it), each family recomputing its layers in the
+backward when ``cfg.remat``.
 
 ``params_from_numpy`` carries the reference's parameter pytree across (as
 numpy arrays, bfloat16 included), so both packages compute the same
@@ -61,12 +63,12 @@ def init_params(cfg: ModelConfig, seed: Union[int, torch.Generator] = 0,
 
 def train_loss(cfg: ModelConfig, params, batch: Dict[str, Any],
                rules=None, msize: int = 1):
-    """Next-token CE over ``batch["tokens"]`` [B, S+1]; the forward
-    value."""
+    """Next-token CE over ``batch["tokens"]`` [B, S+1] (targets = tokens
+    shifted), differentiable in ``params``."""
     tokens = batch["tokens"]
     inp, tgt = tokens[:, :-1], tokens[:, 1:]
     if cfg.family == "rwkv":
-        hid, _ = rwkv6.rwkv_backbone(cfg, params, inp, rules)
+        hid, _ = rwkv6.rwkv_backbone(cfg, params, inp, rules, train=True)
     elif cfg.family == "hybrid":
         hid, _ = zamba2.forward(cfg, params, inp, rules=rules, msize=msize,
                                 mode="train")

@@ -12,8 +12,12 @@ compares the two carries the reference's parameters across
 ``flash_attention`` is the reference's blocked online-softmax scan (not a
 TPU kernel) in plain PyTorch: the same block rules (a sequence that the
 block does not divide is one block), float32 scores, running max and
-denominator, and the ``-1e30`` mask.  No custom backward yet (training is
-a later slice).
+denominator, and the ``-1e30`` mask.  Its backward is the reference's
+custom VJP (``_flash_bwd_scan``): a ``torch.autograd.Function`` that saves
+the inputs, the output and the softmax statistics and recomputes each
+score tile, so no ``[.., bq, .., bkv]`` tile outlives its KV step.
+``remat`` is the reference's ``jax.checkpoint``: the families wrap each
+layer (and the chunk recurrences) in it in train mode only.
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 MASK = -1e30
 
@@ -134,12 +139,111 @@ def _qkv(cfg, p, x, x_kv=None):
     return q, k, v
 
 
+def remat(fn, on: bool):
+    """``fn`` run under ``torch.utils.checkpoint`` (non-reentrant: its
+    activations are recomputed in the backward) when ``on``, else ``fn``
+    itself: the reference's ``jax.checkpoint(fn, nothing_saveable)``."""
+    if not on:
+        return fn
+
+    def wrapped(*args, **kwargs):
+        return torch.utils.checkpoint.checkpoint(
+            fn, *args, use_reentrant=False, **kwargs)
+    return wrapped
+
+
+def _q_positions(nq: int, bq: int, q_offset: int, dev) -> torch.Tensor:
+    return q_offset + torch.arange(nq * bq, device=dev).reshape(nq, bq)
+
+
+def _scores(qb, kc, j: int, bkv: int, q_pos, causal: bool, scale: float):
+    """The float32 score tile of KV block ``j``, masked to ``-1e30``."""
+    sc = torch.einsum("bqthgd,bchd->bqthgc", qb, kc) * scale
+    if causal:
+        k_pos = j * bkv + torch.arange(bkv, device=qb.device)
+        mask = q_pos[:, :, None] >= k_pos[None, None, :]
+        sc = torch.where(mask[None, :, :, None, None, :], sc, MASK)
+    return sc
+
+
+def _flash_fwd(qb, kb, vb, causal: bool, scale: float, q_offset: int):
+    """Forward scan with online softmax.  qb: [b,nq,bq,hkv,g,hd] float32;
+    kb/vb: [b,nkv,bkv,hkv,hd].  Returns (out float32, mx, den)."""
+    b, nq, bq, hkv, g, hd = qb.shape
+    nkv, bkv = kb.shape[1], kb.shape[2]
+    dev = qb.device
+    q_pos = _q_positions(nq, bq, q_offset, dev)
+    acc = torch.zeros((b, nq, bq, hkv, g, hd), dtype=torch.float32,
+                      device=dev)
+    mx = torch.full((b, nq, bq, hkv, g), MASK, dtype=torch.float32,
+                    device=dev)
+    den = torch.zeros((b, nq, bq, hkv, g), dtype=torch.float32, device=dev)
+    for j in range(nkv):
+        kc, vc = kb[:, j].float(), vb[:, j].float()
+        sc = _scores(qb, kc, j, bkv, q_pos, causal, scale)
+        new_mx = torch.maximum(mx, sc.amax(dim=-1))
+        corr = torch.exp(mx - new_mx)
+        p_ = torch.exp(sc - new_mx[..., None])
+        den = den * corr + p_.sum(dim=-1)
+        pv = torch.einsum("bqthgc,bchd->bqthgd", p_, vc)
+        acc = acc * corr[..., None] + pv
+        mx = new_mx
+    out = acc / torch.clamp(den[..., None], min=1e-30)
+    return out, mx, den
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The reference's ``_attend`` custom VJP: the forward scan, then a
+    backward that recomputes each KV block's score tile from the saved
+    ``(qb, kb, vb, out, mx, den)``.  With normalised probabilities
+    p = exp(sc - mx) / den:
+        dv_j = p^T dout;   ds = p * (dout . v_j - sum(dout * out))
+        dq  += ds k_j * scale;   dk_j = ds^T q * scale
+    all in float32, returned in the inputs' dtypes."""
+
+    @staticmethod
+    def forward(ctx, qb, kb, vb, causal, scale, q_offset):
+        out, mx, den = _flash_fwd(qb, kb, vb, causal, scale, q_offset)
+        ctx.save_for_backward(qb, kb, vb, out, mx, den)
+        ctx.args = (causal, scale, q_offset)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        qb, kb, vb, out, mx, den = ctx.saved_tensors
+        causal, scale, q_offset = ctx.args
+        nq, bq = qb.shape[1], qb.shape[2]
+        nkv, bkv = kb.shape[1], kb.shape[2]
+        q_pos = _q_positions(nq, bq, q_offset, qb.device)
+        dout = dout.float()
+        dterm = (dout * out).sum(dim=-1)                 # [b,nq,bq,hkv,g]
+        den = torch.clamp(den[..., None], min=1e-30)
+        dq = torch.zeros_like(qb, dtype=torch.float32)
+        dks, dvs = [], []
+        for j in range(nkv):
+            kc, vc = kb[:, j].float(), vb[:, j].float()
+            sc = _scores(qb, kc, j, bkv, q_pos, causal, scale)
+            p = torch.exp(sc - mx[..., None]) / den
+            del sc
+            dvs.append(torch.einsum("bqthgc,bqthgd->bchd", p, dout))
+            dp = torch.einsum("bqthgd,bchd->bqthgc", dout, vc)
+            ds = p * (dp - dterm[..., None])
+            del p, dp
+            dq = dq + torch.einsum("bqthgc,bchd->bqthgd", ds, kc) * scale
+            dks.append(torch.einsum("bqthgc,bqthgd->bchd", ds, qb) * scale)
+            del ds
+        dk = torch.stack(dks, dim=1).to(kb.dtype)
+        dv = torch.stack(dvs, dim=1).to(vb.dtype)
+        return dq.to(qb.dtype), dk, dv, None, None, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool, q_offset: int = 0,
                     block_q: int = 512, block_kv: int = 1024,
                     rules=None, model_size: int = 1) -> torch.Tensor:
     """Memory-efficient attention: online softmax over KV blocks, query
-    blocks as a leading batch dimension.  q: [B,S,H,dh], k/v:
+    blocks as a leading batch dimension, and a backward that recomputes
+    the score tiles (``_FlashAttention``).  q: [B,S,H,dh], k/v:
     [B,Sk,Hkv,dh] (grouped-query: H a multiple of Hkv)."""
     _no_rules(rules, model_size)
     b, s, h, hd = q.shape
@@ -156,28 +260,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     qb = q.reshape(b, nq, bq, hkv, g, hd).float()
     kb = k.reshape(b, nkv, bkv, hkv, hd)
     vb = v.reshape(b, nkv, bkv, hkv, hd)
-    dev = q.device
-    q_pos = q_offset + torch.arange(nq * bq, device=dev).reshape(nq, bq)
-    acc = torch.zeros((b, nq, bq, hkv, g, hd), dtype=torch.float32,
-                      device=dev)
-    mx = torch.full((b, nq, bq, hkv, g), MASK, dtype=torch.float32,
-                    device=dev)
-    den = torch.zeros((b, nq, bq, hkv, g), dtype=torch.float32, device=dev)
-    for j in range(nkv):
-        kc, vc = kb[:, j].float(), vb[:, j].float()
-        sc = torch.einsum("bqthgd,bchd->bqthgc", qb, kc) * scale
-        if causal:
-            k_pos = j * bkv + torch.arange(bkv, device=dev)
-            mask = q_pos[:, :, None] >= k_pos[None, None, :]
-            sc = torch.where(mask[None, :, :, None, None, :], sc, MASK)
-        new_mx = torch.maximum(mx, sc.amax(dim=-1))
-        corr = torch.exp(mx - new_mx)
-        p_ = torch.exp(sc - new_mx[..., None])
-        den = den * corr + p_.sum(dim=-1)
-        pv = torch.einsum("bqthgc,bchd->bqthgd", p_, vc)
-        acc = acc * corr[..., None] + pv
-        mx = new_mx
-    out = acc / torch.clamp(den[..., None], min=1e-30)
+    out = _FlashAttention.apply(qb, kb, vb, causal, scale, q_offset)
     return out.reshape(b, s, h, hd).to(q.dtype)
 
 

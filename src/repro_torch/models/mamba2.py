@@ -10,7 +10,9 @@ in float32), and a causal depthwise conv (width 4) on the (x, B, C) stream.
 ``ssd_scan`` is the recurrence (the decode path); ``ssd_chunked`` the
 chunk-parallel prefill path (chunk 64; as the reference's, a length that
 the chunk does not divide is one chunk, whose ``[B, 1, T, T, H]`` float32
-decay tensor grows with the square of the length).
+decay tensor grows with the square of the length).  In training its chunk
+steps of the carried state run under ``layers.remat`` when ``cfg.remat``,
+the reference's ``jax.checkpoint`` of ``chunk_step``.
 """
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ from typing import Any, Dict, Optional
 import torch
 import torch.nn.functional as F
 
-from .layers import _no_rules, _full, dense_init, rms_norm
+from .layers import _no_rules, _full, dense_init, remat, rms_norm
 
 CONV_W = 4
 
@@ -69,8 +71,18 @@ def ssd_scan(x, b_in, c_in, a, d_skip, state0):
     return y.to(x.dtype), s.to(x.dtype)
 
 
-def ssd_chunked(x, b_in, c_in, a, d_skip, state0, chunk: int = 64):
-    """Chunk-parallel SSD; equal to ``ssd_scan`` within rounding."""
+def _ssd_chunk_step(s, qd, ke, xc, lt):
+    """One chunk of the carried state: (the chunk's inter-chunk output,
+    the next state)."""
+    inter = torch.einsum("bthn,bhpn->bthp", qd, s)
+    snew = torch.einsum("bthp,bthn->bhpn", xc, ke)
+    return inter, torch.exp(lt)[..., None, None] * s + snew
+
+
+def ssd_chunked(x, b_in, c_in, a, d_skip, state0, chunk: int = 64,
+                remat_steps: bool = False):
+    """Chunk-parallel SSD; equal to ``ssd_scan`` within rounding.  The
+    chunk steps are recomputed in the backward when ``remat_steps``."""
     b, t, h, p = x.shape
     n = b_in.shape[-1]
     if t % chunk:
@@ -97,18 +109,19 @@ def ssd_chunked(x, b_in, c_in, a, d_skip, state0, chunk: int = 64):
     k_end = torch.exp(ltot[:, :, None] - lcum)[..., None] * \
         bc[:, :, :, None, :]                                # [b,c,t,h,n]
 
+    step = remat(_ssd_chunk_step, remat_steps)
     s = state0.float()
     inter = []
     for c in range(nc):
-        inter.append(torch.einsum("bthn,bhpn->bthp", q_dec[:, c], s))
-        snew = torch.einsum("bthp,bthn->bhpn", xc[:, c], k_end[:, c])
-        s = torch.exp(ltot[:, c])[..., None, None] * s + snew
+        o, s = step(s, q_dec[:, c], k_end[:, c], xc[:, c], ltot[:, c])
+        inter.append(o)
     y = (intra + torch.stack(inter, dim=1)).reshape(b, t, h, p) + \
         d_skip[None, None, :, None] * x.float()
     return y.to(x.dtype), s.to(x.dtype)
 
 
-def mamba_block(cfg, p, x, *, rules=None, state=None, use_chunked=True):
+def mamba_block(cfg, p, x, *, rules=None, state=None, use_chunked=True,
+                train: bool = False):
     """x: [B,T,D].  state = (ssm [B,H,P,N], conv [B,W-1,C]) or None.
     Returns (x, new_state); the ssm state in x's dtype."""
     _no_rules(rules)
@@ -133,7 +146,8 @@ def mamba_block(cfg, p, x, *, rules=None, state=None, use_chunked=True):
     if t == 1 or not use_chunked:
         y, ssm_s = ssd_scan(xh, b_in, c_in, a, p["d_skip"], ssm_s)
     else:
-        y, ssm_s = ssd_chunked(xh, b_in, c_in, a, p["d_skip"], ssm_s)
+        y, ssm_s = ssd_chunked(xh, b_in, c_in, a, p["d_skip"], ssm_s,
+                               remat_steps=train and cfg.remat)
     y = y.reshape(bsz, t, d_in)
     y = (rms_norm(y, p["out_norm"], cfg.norm_eps) * F.silu(z)).to(x.dtype)
     return x + y @ p["out_proj"], (ssm_s.to(x.dtype), conv_s)

@@ -19,8 +19,10 @@ Deliberate differences, both within float rounding:
   * ``jax.lax.top_k`` returns ties lowest index first; ``torch.topk``
     promises no order for ties, so the top k come from a stable
     descending sort (the same indices as the reference's).
-  * The scatter ``y.at[tok].add`` is ``index_add_``, whose float order of
-    the sums differs.
+  * The scatter ``y.at[tok].add`` is ``index_add``, whose float order of
+    the sums differs.  The gathers are ``index_select``, whose backward
+    (``index_add``) sums a token's several choices in one order on the
+    CPU, where an indexing backward adds them atomically from threads.
 """
 from __future__ import annotations
 
@@ -95,7 +97,7 @@ def _moe_shard(cfg, p, x: torch.Tensor) -> torch.Tensor:
     real_ids = torch.arange(e_loc, device=x.device) // v        # [e_loc]
     tok_l, slot_l, val_l = tok[real_ids], slot[real_ids], valid[real_ids]
 
-    xin = x[tok_l.reshape(-1)].reshape(e_loc, cap, d)
+    xin = x.index_select(0, tok_l.reshape(-1)).reshape(e_loc, cap, d)
     xin = xin.masked_fill(~val_l[..., None], 0)
     h = torch.bmm(xin, p["moe_w1"])
     if cfg.act == "swiglu":
@@ -106,10 +108,12 @@ def _moe_shard(cfg, p, x: torch.Tensor) -> torch.Tensor:
         h = F.gelu(h, approximate="tanh")
     out = torch.bmm(h, p["moe_w2"])
 
-    g = gate.reshape(-1)[tok_l * cfg.top_k + slot_l].masked_fill(~val_l, 0)
+    g = gate.reshape(-1).index_select(
+        0, (tok_l * cfg.top_k + slot_l).reshape(-1)).reshape(tok_l.shape)
+    g = g.masked_fill(~val_l, 0)
     out = out * g[..., None]
     y = torch.zeros((t, d), dtype=out.dtype, device=x.device)
-    return y.index_add_(0, tok_l.reshape(-1), out.reshape(-1, d))
+    return y.index_add(0, tok_l.reshape(-1), out.reshape(-1, d))
 
 
 def moe_ffn(cfg, p, x: torch.Tensor, rules=None) -> torch.Tensor:

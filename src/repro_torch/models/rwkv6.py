@@ -17,7 +17,10 @@ in the activation dtype (bfloat16 between decode steps at full width).
 
 ``rwkv_init`` and ``rwkv_backbone`` are the full model (the reference's
 ``_rwkv_init`` and ``_rwkv_backbone`` in ``models/api.py``): stacked
-blocks, run as a Python loop over the layers.
+blocks, run as a Python loop over the layers.  In training
+(``rwkv_backbone(train=True)``) each layer and each chunk step of the
+carried state run under ``layers.remat`` when ``cfg.remat``, at the
+reference's ``jax.checkpoint`` sites.
 """
 from __future__ import annotations
 
@@ -26,8 +29,8 @@ from typing import Any, Dict, Optional
 import torch
 import torch.nn.functional as F
 
-from .layers import _no_rules, _full, dense_init, rms_norm
-from .transformer import _embed, _stack, layer
+from .layers import _no_rules, _full, dense_init, remat, rms_norm
+from .transformer import _embed, _stack, layer, unstack
 
 _WL_MAX = 1.2          # clamp on pre-decay so chunk-16 stays in f32 range
 
@@ -84,8 +87,18 @@ def wkv_scan(r, k, v, w, u, state0):
     return torch.stack(outs, dim=1).to(r.dtype), s.to(r.dtype)
 
 
-def wkv_chunked(r, k, v, w, u, state0, chunk: int = 16):
-    """Chunk-parallel wkv (equal to ``wkv_scan`` within rounding).
+def _wkv_chunk_step(s, qd, ke, vc, lt):
+    """One chunk of the carried state: (the chunk's inter-chunk output,
+    the next state)."""
+    inter = torch.einsum("bthn,bhnm->bthm", qd, s)
+    a = torch.einsum("bthn,bthm->bhnm", ke, vc)
+    return inter, torch.exp(lt)[..., None] * s + a
+
+
+def wkv_chunked(r, k, v, w, u, state0, chunk: int = 16,
+                remat_steps: bool = False):
+    """Chunk-parallel wkv (equal to ``wkv_scan`` within rounding); the
+    chunk steps recomputed in the backward when ``remat_steps``.
 
     With within-chunk cumulative log decay L_t = sum_{s<=t} log w_s:
       intra: o_t  = sum_{s<t} (r_t e^{L_{t-1}} . k_s e^{-L_s}) v_s
@@ -118,18 +131,18 @@ def wkv_chunked(r, k, v, w, u, state0, chunk: int = 16):
 
     k_end = kc * torch.exp(ltot[:, :, None] - lcum)      # e^{L_C - L_s} k_s
 
+    step = remat(_wkv_chunk_step, remat_steps)
     s = state0.float()
     inter = []
     for c in range(nc):
-        inter.append(torch.einsum("bthn,bhnm->bthm", q_dec[:, c], s))
-        a = torch.einsum("bthn,bthm->bhnm", k_end[:, c], vc[:, c])
-        s = torch.exp(ltot[:, c])[..., None] * s + a
+        o, s = step(s, q_dec[:, c], k_end[:, c], vc[:, c], ltot[:, c])
+        inter.append(o)
     out = (intra + bonus + torch.stack(inter, dim=1)).reshape(b, t, h, n)
     return out.to(r.dtype), s.to(r.dtype)
 
 
 def time_mix(cfg, p, x, *, rules=None, state=None, last_tok=None,
-             use_chunked=True):
+             use_chunked=True, train: bool = False):
     """RWKV6 attention analogue.  x: [B,T,D].
     state: [B,H,N,N] carried wkv state; last_tok: [B,D] previous token."""
     _no_rules(rules)
@@ -155,7 +168,8 @@ def time_mix(cfg, p, x, *, rules=None, state=None, last_tok=None,
     if t == 1 or not use_chunked:
         out, state = wkv_scan(r, k, v, w, u, state)
     else:
-        out, state = wkv_chunked(r, k, v, w, u, state)
+        out, state = wkv_chunked(r, k, v, w, u, state,
+                                 remat_steps=train and cfg.remat)
     out = out.reshape(b, t, d)
     out = rms_norm(out, p["ln_x"], cfg.norm_eps) * g
     return out @ p["o_proj"], state
@@ -168,13 +182,14 @@ def channel_mix(cfg, p, x, last_tok=None):
     return rr * (h @ p["cm_v"])
 
 
-def rwkv_block(cfg, p, x, *, rules=None, state=None, use_chunked=True):
+def rwkv_block(cfg, p, x, *, rules=None, state=None, use_chunked=True,
+               train: bool = False):
     """One RWKV6 block.  ``state`` is (wkv [B,H,N,N], last1 [B,D], last2
     [B,D]) for decode, or None for train/prefill.  Returns (x, new_state)."""
     wkv_s, last1, last2 = state if state is not None else (None, None, None)
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     a, wkv_s = time_mix(cfg, p, h, rules=rules, state=wkv_s,
-                        last_tok=last1, use_chunked=use_chunked)
+                        last_tok=last1, use_chunked=use_chunked, train=train)
     new_last1 = h[:, -1]
     x = x + a
     h2 = rms_norm(x, p["norm2"], cfg.norm_eps)
@@ -201,12 +216,22 @@ def rwkv_init(cfg, gen: torch.Generator) -> Dict[str, Any]:
                                scale=0.02)}
 
 
-def rwkv_backbone(cfg, params, tokens, rules=None, state=None):
+def rwkv_backbone(cfg, params, tokens, rules=None, state=None,
+                  train: bool = False):
     """The layer stack.  ``state`` (decode) is the stacked (wkv [L,B,H,N,N],
     last1 [L,B,D], last2 [L,B,D]); None for train/prefill, which start
     from zeros and take the chunked wkv.  Returns (normed hidden [B,T,D],
-    new stacked state)."""
+    new stacked state); with ``train`` the state is None and each layer
+    runs under ``remat`` when ``cfg.remat``."""
     x = _embed(cfg, params, tokens)
+    if train:
+        def body(bp, h):
+            return rwkv_block(cfg, bp, h, rules=rules, train=True)[0]
+
+        body = remat(body, cfg.remat)
+        for bp in unstack(params["blocks"], cfg.n_layers):
+            x = body(bp, x)
+        return rms_norm(x, params["final_norm"], cfg.norm_eps), None
     decode = state is not None
     new = ([], [], [])
     for i in range(cfg.n_layers):

@@ -8,21 +8,23 @@ Three entry points, as the reference's launch contract:
 
 The layer stack is stored stacked (``params["blocks"]``: every leaf with a
 leading ``L`` axis) as the reference's scan carries it, and run as a
-Python loop over the layers.  ``train_loss`` computes the forward value
-(no remat or custom backward: training is a later slice).  A config with
-``moe=True`` takes the mixture-of-experts FFN (``models/moe.py``) in place
-of the MLP, as the reference's ``_ffn``.
+Python loop over the layers.  ``train_loss`` is differentiable: with
+``cfg.remat`` each layer runs under ``layers.remat`` (recomputed in the
+backward), as the reference's ``_backbone_train``; prefill and decode
+never recompute.  A config with ``moe=True`` takes the mixture-of-experts
+FFN (``models/moe.py``) in place of the MLP, as the reference's ``_ffn``.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import torch
+import torch.nn.functional as F
 
 from . import moe as moe_lib
 from .config import ModelConfig
 from .layers import (_no_rules, attention, attention_params, dense_init,
-                     mlp, mlp_params, rms_norm)
+                     mlp, mlp_params, remat, rms_norm)
 
 
 def _dt(cfg) -> torch.dtype:
@@ -49,6 +51,15 @@ def _stack(trees):
 def layer(blocks: Dict[str, Any], i: int) -> Dict[str, Any]:
     """Layer ``i``'s parameters: views of the stacked blocks."""
     return tree_map(lambda a: a[i], blocks)
+
+
+def unstack(blocks: Dict[str, Any], n: int) -> List[Dict[str, Any]]:
+    """Every layer's parameters, views of the stacked blocks taken by one
+    ``unbind`` per leaf (whose backward stacks the layers' gradients
+    once, where ``n`` ``layer`` views would each scatter into a zero
+    tensor of the whole stack)."""
+    parts = tree_map(lambda a: a.unbind(0), blocks)
+    return [tree_map(lambda t: t[i], parts) for i in range(n)]
 
 
 def block_params(cfg: ModelConfig, gen: torch.Generator,
@@ -105,7 +116,10 @@ def _head(params) -> torch.Tensor:
 
 
 def _embed(cfg, params, tokens: torch.Tensor) -> torch.Tensor:
-    return params["embed"][tokens.long()].to(_act_dt(cfg))
+    """The rows of ``params["embed"]``: ``F.embedding``, whose backward sums
+    a repeated token's rows in one order on the CPU and on the card (an
+    indexing backward adds them atomically from CPU threads)."""
+    return F.embedding(tokens.long(), params["embed"]).to(_act_dt(cfg))
 
 
 def chunked_ce_loss(cfg, hidden, head_w, targets, rules=None):
@@ -128,13 +142,17 @@ def chunked_ce_loss(cfg, hidden, head_w, targets, rules=None):
 
 def train_loss(cfg: ModelConfig, params, tokens: torch.Tensor, rules=None,
                msize: int = 1) -> torch.Tensor:
-    """Next-token CE over tokens [B, S+1] (targets = tokens shifted); the
-    forward value."""
+    """Next-token CE over tokens [B, S+1] (targets = tokens shifted);
+    every layer recomputed in the backward when ``cfg.remat``."""
     inp, tgt = tokens[:, :-1], tokens[:, 1:]
     x = _embed(cfg, params, inp)
-    for i in range(cfg.n_layers):
-        x, _ = _block(cfg, layer(params["blocks"], i), x, rules=rules,
-                      msize=msize)
+
+    def body(bp, h):
+        return _block(cfg, bp, h, rules=rules, msize=msize)[0]
+
+    body = remat(body, cfg.remat)
+    for bp in unstack(params["blocks"], cfg.n_layers):
+        x = body(bp, x)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return chunked_ce_loss(cfg, x, _head(params), tgt, rules)
 

@@ -11,7 +11,9 @@ of the image tokens once; decode attends to them as a static cache.
 
 Caches: ``k_plain``/``v_plain`` [G, per-1, B, S, Hkv, dh] and
 ``k_cself``/``v_cself`` [G, B, S, Hkv, dh], padded to ``cache_len``;
-``k_cross``/``v_cross`` [G, B, n_img, Hkv, dh], not padded.
+``k_cross``/``v_cross`` [G, B, n_img, Hkv, dh], not padded.  In training
+every plain layer and every cross layer runs under ``layers.remat`` when
+``cfg.remat``, at the reference's ``jax.checkpoint`` sites.
 """
 from __future__ import annotations
 
@@ -21,9 +23,9 @@ import torch
 import torch.nn.functional as F
 
 from .config import ModelConfig
-from .layers import _full, attention, dense_init, rms_norm
+from .layers import _full, attention, dense_init, remat, rms_norm
 from .transformer import (_block as tf_block, _dt, _embed, _stack,
-                          block_params, layer, tree_map)
+                          block_params, layer, tree_map, unstack)
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator) -> Dict[str, Any]:
@@ -74,6 +76,21 @@ def forward(cfg: ModelConfig, params, tokens, img_embed, *, rules=None,
     x = _embed(cfg, params, tokens)
     decode = mode == "decode"
     img = None if decode else img_embed.to(x.dtype)
+    if mode == "train":
+        def plain(bp, h):
+            return tf_block(cfg, bp, h, rules=rules, msize=msize)[0]
+
+        def cross(bp, h):
+            return _cross_block(cfg, bp, h, img, rules=rules, msize=msize,
+                                cache=None, pos=None)[0]
+
+        plain, cross = remat(plain, cfg.remat), remat(cross, cfg.remat)
+        crosses = unstack(params["cross"], n_super)
+        for g, gp in enumerate(unstack(params["plain"], n_super)):
+            for bp in unstack(gp, per - 1):
+                x = plain(bp, x)
+            x = cross(crosses[g], x)
+        return rms_norm(x, params["final_norm"], cfg.norm_eps), None
     names = ("k_plain", "v_plain", "k_cself", "v_cself", "k_cross",
              "v_cross")
     out = {k: [] for k in names}
@@ -87,9 +104,8 @@ def forward(cfg: ModelConfig, params, tokens, img_embed, *, rules=None,
                              cache=c, pos=pos if decode else None)
             ks.append(kv[0])
             vs.append(kv[1])
-        if mode != "train":
-            out["k_plain"].append(torch.stack(ks))
-            out["v_plain"].append(torch.stack(vs))
+        out["k_plain"].append(torch.stack(ks))
+        out["v_plain"].append(torch.stack(vs))
         c = (cache["k_cself"][g], cache["v_cself"][g]) if decode else None
         cx = (cache["k_cross"][g], cache["v_cross"][g]) if decode else None
         x, self_kv, cross_kv = _cross_block(
@@ -101,8 +117,6 @@ def forward(cfg: ModelConfig, params, tokens, img_embed, *, rules=None,
         out["v_cross"].append(cross_kv[1])
 
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    if mode == "train":
-        return x, None
     new_cache = {k: torch.stack(v) for k, v in out.items()}
     if mode == "prefill" and cache_len and cache_len > t:
         pad6 = (0, 0, 0, 0, 0, cache_len - t)       # the S axis

@@ -8,7 +8,9 @@ self-attention, the MLP, then cross-attention to the encoder output
 (rotary positions, as the reference's, instead of Whisper's learned
 absolute embeddings).  The prefill caches each layer's cross K/V
 (``k_cross``/``v_cross`` [L, B, n_frames, Hkv, dh]); decode takes no
-frames.
+frames.  In training every encoder and decoder layer runs under
+``layers.remat`` when ``cfg.remat``, at the reference's
+``jax.checkpoint`` sites.
 """
 from __future__ import annotations
 
@@ -18,9 +20,9 @@ import torch
 import torch.nn.functional as F
 
 from .config import ModelConfig
-from .layers import _full, attention, dense_init, mlp, rms_norm
+from .layers import _full, attention, dense_init, mlp, remat, rms_norm
 from .transformer import (_block as tf_block, _dt, _embed, _stack,
-                          block_params, layer)
+                          block_params, layer, unstack)
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator) -> Dict[str, Any]:
@@ -39,17 +41,23 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> Dict[str, Any]:
     }
 
 
-def encode(cfg, params, frames, *, rules=None, msize=1):
-    """frames: [B, n_frames, D] stub embeddings -> encoder output."""
+def encode(cfg, params, frames, *, rules=None, msize=1,
+           train: bool = False):
+    """frames: [B, n_frames, D] stub embeddings -> encoder output; with
+    ``train`` each layer runs under ``remat`` when ``cfg.remat``."""
     x = frames.to(getattr(torch, cfg.act_dtype))
-    for i in range(cfg.enc_layers):
-        bp = layer(params["enc"], i)
+
+    def body(bp, x):
         h = rms_norm(x, bp["norm1"], cfg.norm_eps)
         a, _ = attention(cfg, bp["attn"], h, rules=rules, model_size=msize,
                          causal=False)
         x = x + a
         h = rms_norm(x, bp["norm2"], cfg.norm_eps)
-        x = x + mlp(cfg, bp["mlp"], h, rules)
+        return x + mlp(cfg, bp["mlp"], h, rules)
+
+    body = remat(body, train and cfg.remat)
+    for bp in unstack(params["enc"], cfg.enc_layers):
+        x = body(bp, x)
     return rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
 
@@ -60,8 +68,21 @@ def forward(cfg: ModelConfig, params, tokens, frames, *, rules=None,
     bsz, t = tokens.shape
     decode = mode == "decode"
     enc_out = None if decode else encode(cfg, params, frames, rules=rules,
-                                         msize=msize)
+                                         msize=msize, train=mode == "train")
     x = _embed(cfg, params, tokens)
+    if mode == "train":
+        def body(bp, x):
+            x, _ = tf_block(cfg, bp, x, rules=rules, msize=msize)
+            h = rms_norm(x, bp["norm_x"], cfg.norm_eps)
+            a, _ = attention(cfg, bp["xattn"], h, rules=rules,
+                             model_size=msize, x_kv=enc_out, rope=False,
+                             causal=False)
+            return x + a
+
+        body = remat(body, cfg.remat)
+        for bp in unstack(params["dec"], cfg.n_layers):
+            x = body(bp, x)
+        return rms_norm(x, params["final_norm"], cfg.norm_eps), None
     ks, vs, kxs, vxs = [], [], [], []
     for i in range(cfg.n_layers):
         bp = layer(params["dec"], i)
@@ -82,8 +103,6 @@ def forward(cfg: ModelConfig, params, tokens, frames, *, rules=None,
         for acc, z in zip((ks, vs, kxs, vxs), (*kv, *xkv)):
             acc.append(z)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    if mode == "train":
-        return x, None
     ks, vs = torch.stack(ks), torch.stack(vs)
     if mode == "prefill" and cache_len and cache_len > t:
         pad = (0, 0, 0, 0, 0, cache_len - t)

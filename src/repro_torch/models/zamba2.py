@@ -9,7 +9,11 @@ superblocks, ``super`` [n_super, attn_every, ...], plus a ``tail``
 it divides ``n_layers``).
 
 Decode state: per-layer (ssm, conv) states and one K/V cache per
-shared-block application (weights shared, caches distinct).
+shared-block application (weights shared, caches distinct).  In training
+each Mamba2 layer (and its chunk steps) and each application of the
+shared block run under ``layers.remat`` when ``cfg.remat``, at the
+reference's ``jax.checkpoint`` sites; the shared block's gradients from
+its applications add up.
 """
 from __future__ import annotations
 
@@ -19,10 +23,11 @@ import torch
 import torch.nn.functional as F
 
 from .config import ModelConfig
-from .layers import _full, dense_init, rms_norm
+from .layers import _full, dense_init, remat, rms_norm
 from .mamba2 import CONV_W, mamba_block, mamba_params
 from .transformer import (_block as tf_block, _embed, _stack,
-                          block_params as tf_block_params, layer, tree_map)
+                          block_params as tf_block_params, layer, tree_map,
+                          unstack)
 
 
 def n_shared_applications(cfg) -> int:
@@ -72,32 +77,51 @@ def forward(cfg: ModelConfig, params, tokens, *, rules=None, msize=1,
     bsz, t = tokens.shape
     x = _embed(cfg, params, tokens)
     decode = mode == "decode"
+    train = mode == "train"
     collect_cache = mode == "prefill"
     if not decode:
         zero = _zero_states(cfg, bsz, x.dtype, x.device)
 
     ssm_list, conv_list, k_list, v_list = [], [], [], []
 
+    def mamba_train(bp, h):
+        return mamba_block(cfg, bp, h, rules=rules, state=zero,
+                           train=True)[0]
+
+    def shared_train(h):
+        return tf_block(cfg, params["shared"], h, rules=rules,
+                        msize=msize)[0]
+
+    mamba_train = remat(mamba_train, cfg.remat)
+    shared_train = remat(shared_train, cfg.remat)
+
     def mamba_group(h, group_params, first, count):
+        if train:
+            for bp in unstack(group_params, count):
+                h = mamba_train(bp, h)
+            return h
         for j in range(count):
             st = ((cache["ssm"][first + j], cache["conv"][first + j])
                   if decode else zero)
             h, (ssm, conv) = mamba_block(cfg, layer(group_params, j), h,
                                          rules=rules, state=st,
                                          use_chunked=not decode)
-            if mode != "train":
-                ssm_list.append(ssm)
-                conv_list.append(conv)
+            ssm_list.append(ssm)
+            conv_list.append(conv)
         return h
 
+    supers = (unstack(params["super"], n_super) if train else
+              [layer(params["super"], g) for g in range(n_super)])
     for g in range(n_super):
-        x = mamba_group(x, layer(params["super"], g), g * per, per)
+        x = mamba_group(x, supers[g], g * per, per)
+        if train:
+            x = shared_train(x)
+            continue
         kv_cache = (cache["k"][g], cache["v"][g]) if decode else None
         x, kv = tf_block(cfg, params["shared"], x, rules=rules, msize=msize,
                          cache=kv_cache, pos=pos if decode else None)
-        if mode != "train":
-            k_list.append(kv[0])
-            v_list.append(kv[1])
+        k_list.append(kv[0])
+        v_list.append(kv[1])
     if n_tail:
         x = mamba_group(x, params["tail"], n_super * per, n_tail)
 
