@@ -157,7 +157,15 @@ idle share), after its card checks: the attention backward against
 naive autograd at qwen3's head shapes (2e-4), every config's reduced
 float32 gradients on the card against the CPU's (1e-4), a restart drill
 (1 restart, the uninterrupted loss history) and the full parameter tree
-through ``CheckpointManager`` (bitwise); no kernel runs there either.
+through ``CheckpointManager`` (bitwise); no kernel runs there either;
+and last the LM dry run (``[lmdry]``): the parameter specs and per-device
+bytes of all 10 configs at both production layouts, dry cells walked on
+``meta`` tensors (per-device flops, matmul flops, bytes, argument bytes;
+no launch, no allocation on the card), the abstract parameters and
+decode caches equal to real ones made on the card, the ``meta`` walk of
+a train step equal to the card's own walk operator by operator, and the
+walked flops of ``[train]``'s step and ``[lm]``'s prefill and decode
+step beside the rates their measured times imply.
 Launch counts are reset just before each path and read just after (graph
 replays launch kernels without their wrappers: logged apart).
 Any failure raises; the last line is the device JSON only on success.
@@ -5323,6 +5331,264 @@ def train_phase(torch, timer, device: str = "cuda", reduced: bool = False,
                 n_params=n_params, launches=launches, phase_s=t_phase)
 
 
+# ---------------------------------------------------------------------------
+# lmdry phase: the LM dry run on meta tensors, held to the card
+# ---------------------------------------------------------------------------
+
+LMDRY_ARCH = "qwen3-0.6b"
+LMDRY_RECURRENT_PREFILL = 512    # of prefill_32k's 32,768: the chunk loops
+LMDRY_WALK_LAYERS = 2            # the meta walk vs the card's walk: depth
+LMDRY_WALK_SHAPE = (1, 4096)     # B, S of that train step
+LMDRY_CACHE = (8, 128, 256)      # [lm]'s requests, prompt and max_len
+# one config of each other family (MoE, RWKV, hybrid, VLM, audio)
+LMDRY_FAMILIES = ("qwen3-moe-30b-a3b", "rwkv6-7b", "zamba2-7b",
+                  "llama-3.2-vision-11b", "whisper-tiny")
+
+
+def _flat_sig(tree, path=""):
+    """path -> (shape, dtype) of a nested dict/tuple tree of tensors."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flat_sig(v, f"{path}/{k}" if path else str(k)))
+        return out
+    if isinstance(tree, (list, tuple)):
+        out = {}
+        for i, v in enumerate(tree):
+            out.update(_flat_sig(v, f"{path}/{i}"))
+        return out
+    return {path: (tuple(tree.shape), tree.dtype)}
+
+
+def _lmdry_real_cache(torch, cfg, device: str, gen):
+    """A real prefill of ``LMDRY_CACHE``'s prompts on ``device`` (seeded
+    weights, zero stub inputs): its cache."""
+    from repro_torch.models import api
+    b, s, max_len = LMDRY_CACHE
+    params = api.init_params(cfg, LM_SEED, device)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (b, s), generator=gen,
+                                     device=device, dtype=torch.int32)}
+    dt = getattr(torch, cfg.act_dtype)
+    if cfg.family == "vlm":
+        batch["img_embed"] = torch.zeros((b, cfg.n_img_tokens, cfg.d_model),
+                                         dtype=dt, device=device)
+    if cfg.family == "audio":
+        batch["frames"] = torch.zeros((b, cfg.n_frames, cfg.d_model),
+                                      dtype=dt, device=device)
+    with torch.no_grad():
+        _, cache = api.prefill(cfg, params, batch, cache_len=max_len)
+    return cache
+
+
+def lmdry_phase(torch, lm: dict, trained: dict, device: str = "cuda",
+                card: str = "", cells=None, reduced: bool = False) -> dict:
+    """The LM dry run (``launch.dryrun``, ``launch.shapes``,
+    ``parallel.sharding``, ``models.api.abstract_params``): the parameter
+    specs of all 10 configs at both production layouts (leaves, per-device
+    parameter and float32 moment bytes); dry cells walked on ``meta``
+    (qwen3-0.6b train_4k, prefill_32k and decode_32k on the single pod and
+    train_4k on the multi-pod layout, decode_32k for one config of each
+    other family (``LMDRY_FAMILIES``),
+    long_500k for RWKV6 and Zamba2, their prefill cut to
+    ``LMDRY_RECURRENT_PREFILL`` tokens): per-device flops, matmul flops,
+    bytes, argument bytes and walk seconds, with no launch and no memory
+    allocated on the card.  Then the card holds the abstractions: the
+    abstract qwen3-0.6b tree equals ``init_params``' on the card leaf by
+    leaf and in bytes; the abstract cache equals a real prefill's (8 x
+    128 prompts, ``cache_len`` 256) for qwen3-0.6b at full width and one
+    reduced config of each other family; the ``meta`` walk of a train step
+    (qwen3-0.6b at full width, 2 layers, B 1, S 4,096) equals
+    ``op_cost.count_ops`` of the same step on the card operator by
+    operator (calls, flops, bytes; a difference is named and the matrix
+    products must still agree).  Last, the walked flops of ``[train]``'s
+    step (4 x 4,096, full depth, PowerSGD and AdamW) and of ``[lm]``'s
+    prefill and one decode step, each beside the rate that phase's
+    measured time implies.  ``cells`` replaces the dry cells and
+    ``reduced`` runs the card's checks and the steps' walks at qwen3-0.6b's
+    reduced config (a CPU rehearsal)."""
+    from repro_torch.configs.base import ARCHS, SHAPES, ShapeCfg, get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun as dry
+    from repro_torch.launch.mesh import production_layout
+    from repro_torch.launch.shapes import abstract_cache, input_specs
+    from repro_torch.launch.train import OPT_CFG, PSGD_CFG, build_train_step
+    from repro_torch.models import api
+    from repro_torch.parallel.sharding import make_param_shardings
+    from repro_torch.perf import op_cost
+
+    t_phase = time.perf_counter()
+    on_card = device == "cuda"
+    ops.reset_launch_counts()
+    mem0 = torch.cuda.memory_allocated() if on_card else 0
+    layouts = {"1pod": production_layout(), "2pod": production_layout(
+        multi_pod=True)}
+
+    # the parameter specs of every config at both layouts
+    t0 = time.perf_counter()
+    specs = {}
+    for arch in ARCHS:
+        cfg = get_config(arch)
+        params = api.abstract_params(cfg)
+        n_leaves = len(_flat_sig(params))
+        for name, lay in layouts.items():
+            rules = dry.cell_rules(cfg, SHAPES["train_4k"], lay)
+            psh = make_param_shardings(params, rules, lay)
+            pb = dry.sharded_bytes(params, psh, lay)
+            mb = 2 * dry.sharded_bytes(params, psh, lay, torch.float32)
+            specs[f"{arch}/{name}"] = dict(leaves=n_leaves, param_bytes=pb,
+                                           moment_bytes=mb)
+            log(f"[lmdry] specs {arch} {name} ({lay.size} devices, attn_tp "
+                f"{rules.attn_tp}): {n_leaves} leaves, per device params "
+                f"{pb} bytes, float32 moments {mb} bytes")
+    t_specs = time.perf_counter() - t0
+
+    # the dry cells
+    if cells is None:
+        cells = [(LMDRY_ARCH, s, False, None) for s in
+                 ("train_4k", "prefill_32k", "decode_32k")]
+        cells.append((LMDRY_ARCH, "train_4k", True, None))
+        cells += [(a, "decode_32k", False, None) for a in LMDRY_FAMILIES]
+        cells += [(a, s, False, LMDRY_RECURRENT_PREFILL
+                   if s == "prefill_32k" else None)
+                  for a in ("rwkv6-7b", "zamba2-7b")
+                  for s in ("long_500k", "prefill_32k")]
+    walks, rows = {}, []
+    t0 = time.perf_counter()
+    for arch, shape, multi_pod, seq in cells:
+        r = dry.dry_cell(arch, shape, layout=layouts["2pod" if multi_pod
+                                                      else "1pod"],
+                         seq_len=seq, walks=walks)
+        cut = f", cut {r['cut']}" if r["cut"] else ""
+        parts = {k: v for k, v in r["argument_bytes"].items()
+                 if k != "total"}
+        log(f"[lmdry] cell {arch} x {shape} x "
+            f"{'2pod' if multi_pod else '1pod'}{cut}: per device flops "
+            f"{r['flops_per_device']:.4e}, matmul flops "
+            f"{r['matmul_flops_per_device']:.4e}, bytes "
+            f"{r['bytes_per_device']:.4e}, argument bytes "
+            f"{r['argument_bytes']['total']} "
+            f"({parts}), "
+            f"{r['dispatches']} dispatches, walk {r['walk_s']:.2f} s"
+            f"{' (shared with the single pod)' if r['walk_reused'] else ''}")
+        rows.append({k: r[k] for k in (
+            "arch", "shape", "mesh", "cut", "flops_per_device",
+            "matmul_flops_per_device", "bytes_per_device", "argument_bytes",
+            "dispatches", "walk_s")})
+    t_cells = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    require(not any(launches.values()),
+            f"[lmdry] the walks launched kernels: {launches}")
+    mem1 = torch.cuda.memory_allocated() if on_card else 0
+    require(mem1 == mem0, f"[lmdry] the walks allocated {mem1 - mem0} "
+                          f"bytes on the card")
+    log(f"[lmdry] specs of 10 configs x 2 layouts {t_specs:.1f} s, "
+        f"{len(cells)} dry cells {t_cells:.1f} s: no launch, no allocation "
+        f"on the card ({mem1} bytes before and after)")
+
+    # the abstract tree is the real tree
+    gen = torch.Generator(device=device).manual_seed(LM_SEED)
+    cfg = get_config(LMDRY_ARCH)
+    cfg = cfg.reduced() if reduced else cfg
+    real = api.init_params(cfg, LM_SEED, device)
+    got, want = _flat_sig(real), _flat_sig(api.abstract_params(cfg))
+    real_bytes = sum(t.numel() * t.element_size() for t in _leaves(real))
+    abs_bytes = sum(math.prod(s) * d.itemsize for s, d in want.values())
+    log(f"[lmdry] {LMDRY_ARCH} init_params on {device}: {len(got)} leaves, "
+        f"{real_bytes} bytes; abstract_params: {len(want)} leaves, "
+        f"{abs_bytes} bytes; equal leaf by leaf {got == want}")
+    require(got == want and real_bytes == abs_bytes,
+            "[lmdry] abstract_params differs from the card's parameters")
+    del real
+
+    # the abstract cache is the real cache
+    b, s, max_len = LMDRY_CACHE
+    dshape = ShapeCfg("decode", max_len, b, "decode")
+    for arch in (LMDRY_ARCH,) + LMDRY_FAMILIES:
+        c = get_config(arch)
+        c = c.reduced() if reduced or arch != LMDRY_ARCH else c
+        got = _flat_sig(_lmdry_real_cache(torch, c, device, gen))
+        want = _flat_sig(abstract_cache(c, dshape))
+        log(f"[lmdry] cache of {arch} "
+            f"{'reduced' if c.d_model == 128 else 'full width'}: real "
+            f"prefill ({b} x {s}, cache_len {max_len}) {len(got)} leaves "
+            f"{sorted((k, v[0]) for k, v in got.items())[:3]}...; equal to "
+            f"abstract_cache {got == want}")
+        require(got == want, f"[lmdry] {arch}: abstract cache {want} != "
+                             f"real {got}")
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # the meta walk is the card's walk
+    wcfg = dataclasses.replace(cfg, n_layers=LMDRY_WALK_LAYERS)
+    wb, ws = (1, 256) if reduced else LMDRY_WALK_SHAPE
+    wshape = ShapeCfg("train", ws, wb, "train")
+    wparams = api.init_params(wcfg, LM_SEED, device)
+    wbatch = {"tokens": torch.randint(0, cfg.vocab, (wb, ws + 1),
+                                      generator=gen, device=device,
+                                      dtype=torch.int32)}
+    card_ops = op_cost.count_ops(dry._program(wcfg, wshape, None, wparams,
+                                              wbatch, None))
+    meta_ops = dry.walk(wcfg, wshape)["per_op"]
+    diff = {k: (card_ops.get(k), meta_ops.get(k))
+            for k in sorted(set(card_ops) | set(meta_ops))
+            if card_ops.get(k) != meta_ops.get(k)}
+    mm_card = op_cost.matmul_flops(card_ops)
+    mm_meta = op_cost.matmul_flops(meta_ops)
+    tot = {w: [sum(r[f] for r in o.values()) for f in ("calls", "flops",
+                                                         "bytes")]
+           for w, o in (("card", card_ops), ("meta", meta_ops))}
+    log(f"[lmdry] train step of {LMDRY_ARCH} (d {wcfg.d_model}), "
+        f"{LMDRY_WALK_LAYERS} layers, B {wb}, S {ws} on {device}: "
+        f"{len(card_ops)} operators, calls/flops/bytes {tot['card']}; on "
+        f"meta {len(meta_ops)} operators, {tot['meta']}; matmul flops "
+        f"{mm_card:.6e} vs {mm_meta:.6e}; operators that differ "
+        f"{len(diff)}: {diff}")
+    require(mm_card == mm_meta, f"[lmdry] matmul flops card {mm_card} vs "
+                                f"meta {mm_meta}")
+    del wparams, wbatch
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # the work of the card's own steps
+    tstate = dry.abstract_train_state(cfg, OPT_CFG, PSGD_CFG)
+    tstep = build_train_step(cfg, OPT_CFG, total_steps=TRAIN_STEPS,
+                             psgd_cfg=PSGD_CFG)
+    tbatch = input_specs(cfg, ShapeCfg("train", 64 if reduced else
+                                       TRAIN_SEQ, TRAIN_BATCH, "train"))
+    t0 = time.perf_counter()
+    t_ops = op_cost.count_ops(tstep, tstate, tbatch)
+    t_walk = time.perf_counter() - t0
+    mparams = api.abstract_params(cfg)
+    pre = input_specs(cfg, ShapeCfg("prefill", s, b, "prefill"))
+    p_ops = op_cost.count_ops(lambda: api.prefill(cfg, mparams, pre,
+                                                  cache_len=max_len))
+    cache = abstract_cache(cfg, dshape, mparams)
+    pos = torch.empty((), dtype=torch.int32, device="meta")
+    tok = input_specs(cfg, dshape)
+    d_ops = op_cost.count_ops(lambda: api.decode_step(cfg, mparams, tok,
+                                                      cache, pos))
+    work = {}
+    for name, per_op, ms in (("train step", t_ops, trained["step_ms"]),
+                             ("lm prefill", p_ops, lm["prefill_ms"]),
+                             ("lm decode step", d_ops, lm["decode_ms"])):
+        fl = sum(r["flops"] for r in per_op.values())
+        mm = op_cost.matmul_flops(per_op)
+        work[name] = dict(flops=fl, matmul_flops=mm, ms=ms,
+                          tflops=fl / ms / 1e9, matmul_tflops=mm / ms / 1e9)
+        log(f"[lmdry] work of {name}: {fl:.4e} flops ({mm:.4e} matmul) "
+            f"walked on meta; at the {ms:.3f} ms measured in this run that "
+            f"is {fl / ms / 1e9:.2f} TFLOP/s ({mm / ms / 1e9:.2f} matmul); "
+            f"{card}")
+    log(f"[lmdry] the train step's walk (PowerSGD + AdamW included) "
+        f"{t_walk:.1f} s")
+    launches = ops.launch_counts()
+    t_phase = time.perf_counter() - t_phase
+    log(f"[lmdry] phase took {t_phase:.1f} s; launches {launches}")
+    return dict(specs=specs, cells=rows, walk_diff=list(diff),
+                walk_matmul=[mm_card, mm_meta], walk_totals=tot, work=work,
+                launches=launches, phase_s=t_phase)
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -5481,6 +5747,9 @@ def main() -> int:
     trained = train_phase(torch, timer, card=smi)
     for name, n in trained["launches"].items():
         log(f"[kernels] {name}: {n} launches on the training path")
+    lmdry = lmdry_phase(torch, lm, trained, card=smi)
+    for name, n in lmdry["launches"].items():
+        log(f"[kernels] {name}: {n} launches on the LM dry run path")
     kernels = []
     for name in KERNELS:
         r = results[name]
@@ -5494,7 +5763,8 @@ def main() -> int:
                       chaos["launches"][name] + serve["launches"][name] +
                       obs_launches[name] + dserve["launches"][name] +
                       tserve["launches"][name] + lm["launches"][name] +
-                      trained["launches"][name]),
+                      trained["launches"][name] +
+                      lmdry["launches"][name]),
             max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"]))
@@ -5540,6 +5810,8 @@ def main() -> int:
                     "lmfam": {k: v for k, v in lmfam.items()
                               if k != "launches"},
                     "train": {k: v for k, v in trained.items()
+                              if k != "launches"},
+                    "lmdry": {k: v for k, v in lmdry.items()
                               if k != "launches"},
                     "kernel_detail": detail, "card": smi}))
     log(smi)

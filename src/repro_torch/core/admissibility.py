@@ -41,6 +41,12 @@ class BlockStructure:
         return tuple(int(np.bincount(c).max()) if c.size else 0
                      for c in self.s_cols)
 
+    def sparsity_constant(self) -> int:
+        """C_sp: the most blocks in any block row at any level, the dense
+        leaves included."""
+        rows = [r for r in (*self.s_rows, self.d_rows) if r.size]
+        return max((int(np.bincount(r).max()) for r in rows), default=0)
+
 
 def is_admissible(tree: ClusterTree, level: int, t: np.ndarray, s: np.ndarray,
                   eta: float) -> np.ndarray:
@@ -83,3 +89,12 @@ def build_block_structure(tree: ClusterTree, eta: float,
     order = np.lexsort((d_cols, d_rows))
     return BlockStructure(depth=depth, s_rows=tuple(out_r), s_cols=tuple(out_c),
                           d_rows=d_rows[order], d_cols=d_cols[order])
+
+
+def structure_stats(bs: BlockStructure) -> dict:
+    """Coupling blocks per level, dense blocks and C_sp."""
+    return {
+        "coupling_counts": list(bs.coupling_counts()),
+        "dense_count": int(bs.d_rows.shape[0]),
+        "C_sp": bs.sparsity_constant(),
+    }

@@ -1,0 +1,352 @@
+"""The LM dry run on the production layouts, the port of the reference's
+``launch/dryrun.py``: every (architecture x input shape) cell's work per
+device and the bytes of its arguments per device.
+
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-0.6b \\
+        --shape train_4k [--multi-pod]
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --all --both-meshes
+
+Where the reference lowers and compiles one sharded program over 512 fake
+XLA devices, the port walks the GLOBAL program once on the ``meta``
+device under ``perf.op_cost.count_ops`` and divides by the layout's device
+count, as the reference divides its jaxpr walk (``flops_per_device``,
+``bytes_per_device``).  The walk runs the models unsharded (``rules=None``,
+as they still run): train is ``api.train_loss``, ``torch.autograd.grad``
+over the leaves and ``optim.adamw.apply_updates``; prefill is
+``api.prefill`` with ``cache_len = seq_len``; decode is one
+``api.decode_step`` against ``launch.shapes.abstract_cache``.  Every tensor
+is ``meta``, so the walk allocates nothing, reads no value on the host (a
+``meta`` tensor has none) and launches no kernel (``count_ops`` raises if
+one launches).  The dry run is on ``meta`` by design; it runs no program
+on any device.
+
+``argument_bytes`` is new beside the reference's fields: the exact bytes
+per device of the step's arguments (parameters, AdamW moments and step,
+batch, decode cache and position), summed over ``parallel.sharding``'s
+``shard_shape`` of each leaf under the cell's rules and variant.  It is
+the port's stand-in for XLA's ``argument_size_in_bytes`` and what the
+variants move, since they leave the flops alone.  ``compile_s``,
+``xla_flops``, ``xla_bytes_accessed``, ``memory`` and ``collectives`` come
+from XLA's compiler, which the port does not have: a result lists them
+under ``absent``.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import math
+import time
+import traceback
+from typing import Any, Dict, List, Optional, Sequence
+
+import torch
+
+from repro_torch.configs.base import ARCHS, SHAPES, ShapeCfg, get_config, \
+    shape_applicable
+from repro_torch.models import api
+from repro_torch.models.config import ModelConfig
+from repro_torch.optim import adamw
+from repro_torch.parallel.sharding import Rules, make_param_shardings, \
+    mesh_axis_size, shard_shape
+from repro_torch.perf import op_cost
+
+from .mesh import MeshLayout, data_axes, production_layout
+from .shapes import abstract_cache, batch_specs, cache_spec_tree, \
+    input_specs
+
+VARIANTS = ("serve-nofsdp", "opt-bf16", "cache-2d", "zero1", "no-sp")
+ABSENT = ("compile_s", "xla_flops", "xla_bytes_accessed", "memory",
+          "collectives")
+ARGUMENT_BYTES_NOTE = (
+    "exact per-device bytes of the step's arguments from the specs' shard "
+    "shapes: the port's stand-in for XLA's argument_size_in_bytes")
+
+
+def _cfg_for_dryrun(cfg: ModelConfig, shape_name: str) -> ModelConfig:
+    # the loss chunk keeps [B, chunk, V] per device manageable
+    if shape_name == "train_4k":
+        return dataclasses.replace(cfg, loss_chunk=512)
+    return cfg
+
+
+def cell_rules(cfg: ModelConfig, shape: ShapeCfg, layout: MeshLayout,
+               variant: Optional[str] = None) -> Rules:
+    """The rules ``lower_cell`` builds for a cell: KV heads over the model
+    axis when they divide it, the batch over the data axes when it
+    divides them, FSDP off for ``serve-nofsdp`` serving, the decode cache
+    over (data x model) for ``cache-2d`` when the batch cannot use the data
+    axes, no sequence parallelism for ``no-sp``."""
+    msize = layout.axis_size("model")
+    daxes = data_axes(layout)
+    dsize = mesh_axis_size(layout, daxes)
+    return Rules(
+        data_axes=daxes, model_axis="model",
+        attn_tp=cfg.n_kv_heads % msize == 0,
+        batch_shardable=shape.global_batch % dsize == 0,
+        fsdp=not (variant == "serve-nofsdp" and shape.kind != "train"),
+        seq_axes_decode=(daxes + ("model",) if variant == "cache-2d" and
+                         shape.global_batch % dsize else None),
+        seq_parallel=variant != "no-sp")
+
+
+def _pairs(tree, specs):
+    """(leaf, spec) of two trees of one structure (specs are tuples)."""
+    if isinstance(tree, dict):
+        for k in tree:
+            yield from _pairs(tree[k], specs[k])
+    elif isinstance(tree, (list, tuple)):
+        for t, s in zip(tree, specs):
+            yield from _pairs(t, s)
+    else:
+        yield tree, specs
+
+
+def sharded_bytes(tree, specs, layout: MeshLayout,
+                  dtype: Optional[torch.dtype] = None) -> int:
+    """One device's bytes of ``tree`` laid out by ``specs`` (in ``dtype``
+    when given, else each leaf's own)."""
+    return sum(math.prod(shard_shape(leaf.shape, spec, layout)) *
+               (dtype or leaf.dtype).itemsize
+               for leaf, spec in _pairs(tree, specs))
+
+
+def argument_bytes(cfg: ModelConfig, shape: ShapeCfg, layout: MeshLayout,
+                   variant: Optional[str], params, batch, cache=None
+                   ) -> Dict[str, int]:
+    """Per-device bytes of the cell's arguments by part, and their
+    ``total``: ``params`` (replicated over the data axes under ``zero1``),
+    train's ``moments`` (m and v in the master dtype, bfloat16 under
+    ``opt-bf16``; still FSDP under ``zero1``) and ``step``, the ``batch``,
+    decode's ``cache`` (sequence over (data x model) under ``cache-2d``)
+    and ``pos``."""
+    rules = cell_rules(cfg, shape, layout, variant)
+    p_rules = dataclasses.replace(rules, fsdp=False) \
+        if variant == "zero1" else rules
+    psh = make_param_shardings(params, p_rules, layout)
+    out = {"params": sharded_bytes(params, psh, layout)}
+    if shape.kind == "train":
+        msh = make_param_shardings(params, rules, layout) \
+            if variant == "zero1" else psh
+        master = torch.bfloat16 if variant == "opt-bf16" else torch.float32
+        out["moments"] = 2 * sharded_bytes(params, msh, layout, master)
+        out["step"] = 4
+    out["batch"] = sharded_bytes(batch, batch_specs(cfg, shape, rules),
+                                 layout)
+    if cache is not None:
+        msize = layout.axis_size("model")
+        dsize = mesh_axis_size(layout, rules.data_axes)
+        out["cache"] = sharded_bytes(cache, cache_spec_tree(
+            cfg, cache, rules, msize=msize, dsize=dsize,
+            seq_2d=variant == "cache-2d"), layout)
+        out["pos"] = 4
+    out["total"] = sum(out.values())
+    return out
+
+
+def _program(cfg: ModelConfig, shape: ShapeCfg, variant: Optional[str],
+             params, batch, cache):
+    """The cell's global program as a thunk over ``meta`` arguments."""
+    if shape.kind == "train":
+        opt_cfg = adamw.AdamWConfig(
+            master_dtype="bfloat16" if variant == "opt-bf16" else "float32")
+        opt = adamw.init_state(opt_cfg, params)
+        leaves = [p.detach().requires_grad_(True)
+                  for p in adamw.tree_leaves(params)]
+        tracked = adamw.tree_unflatten(params, leaves)
+
+        def train_step():
+            with torch.enable_grad():
+                loss = api.train_loss(cfg, tracked, batch)
+                grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                            materialize_grads=True)
+            with torch.no_grad():
+                return adamw.apply_updates(
+                    opt_cfg, params, adamw.tree_unflatten(params, grads),
+                    opt), loss
+        return train_step
+    if shape.kind == "prefill":
+        def prefill_step():
+            with torch.no_grad():
+                return api.prefill(cfg, params, batch,
+                                   cache_len=shape.seq_len)
+        return prefill_step
+    pos = torch.empty((), dtype=torch.int32, device="meta")
+
+    def serve_step():
+        with torch.no_grad():
+            return api.decode_step(cfg, params, batch, cache, pos)
+    return serve_step
+
+
+def abstract_train_state(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
+                         psgd_cfg=None):
+    """``launch.train.init_train_state``'s state on ``meta``: the
+    parameters, zero AdamW moments and, with ``psgd_cfg``, the PowerSGD
+    factors and error feedback, nothing allocated (a walk of
+    ``launch.train.build_train_step`` takes it)."""
+    from repro_torch.launch.train import TrainState
+    from repro_torch.optim.grad_compress import init_state as psgd_init
+    params = api.abstract_params(cfg)
+    psgd = psgd_init(psgd_cfg, params, api._ShapeOnly()) if psgd_cfg \
+        else None
+    return TrainState(params, adamw.init_state(opt_cfg, params), psgd)
+
+
+def walk(cfg: ModelConfig, shape: ShapeCfg, variant: Optional[str] = None,
+         params=None, batch=None, cache=None) -> Dict[str, Any]:
+    """One walk of the cell's global program on ``meta``: per-operator
+    counts (``op_cost.count_ops``) and the walk's wall seconds."""
+    params = api.abstract_params(cfg) if params is None else params
+    batch = input_specs(cfg, shape) if batch is None else batch
+    if shape.kind == "decode" and cache is None:
+        cache = abstract_cache(cfg, shape, params)
+    fn = _program(cfg, shape, variant, params, batch, cache)
+    t0 = time.perf_counter()
+    per_op = op_cost.count_ops(fn)
+    return {"per_op": per_op, "walk_s": time.perf_counter() - t0}
+
+
+def dry_cell(arch: str, shape_name: str, *,
+             layout: Optional[MeshLayout] = None,
+             variant: Optional[str] = None, n_layers: Optional[int] = None,
+             seq_len: Optional[int] = None,
+             walks: Optional[Dict] = None) -> Dict[str, Any]:
+    """One cell's per-device work and argument bytes on ``layout``
+    (default the single pod): the counterpart of the reference's
+    ``lower_cell``, with its rules (``cell_rules``) and ``variant``s:
+
+      serve-nofsdp -- params replicated over the data axes at serve time
+      opt-bf16     -- AdamW moments in bfloat16
+      cache-2d     -- long-context decode cache sequence-sharded over
+                      (data x model) instead of model only
+      zero1        -- params replicated over data, moments still FSDP
+      no-sp        -- no sequence parallelism
+
+    ``n_layers`` and ``seq_len`` cut the config's depth and the shape's
+    length (recorded under ``cut``).  ``walks`` caches the program's walk
+    across layouts and variants that run the same program (the walk
+    depends on neither but ``opt-bf16``); ``walk_reused`` says a cell
+    took its walk (and ``walk_s``) from there."""
+    if variant is not None and variant not in VARIANTS:
+        raise ValueError(f"unknown variant {variant!r}; one of {VARIANTS}")
+    layout = layout or production_layout()
+    cfg = _cfg_for_dryrun(get_config(arch), shape_name)
+    ok, reason = shape_applicable(cfg, shape_name)
+    if not ok:
+        return {"arch": arch, "shape": shape_name, "skipped": reason}
+    shape = SHAPES[shape_name]
+    cut = {}
+    if n_layers is not None and n_layers != cfg.n_layers:
+        cut["n_layers"] = [n_layers, cfg.n_layers]
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    if seq_len is not None and seq_len != shape.seq_len:
+        cut["seq_len"] = [seq_len, shape.seq_len]
+        shape = dataclasses.replace(shape, seq_len=seq_len)
+
+    params = api.abstract_params(cfg)
+    batch = input_specs(cfg, shape)
+    cache = abstract_cache(cfg, shape, params) \
+        if shape.kind == "decode" else None
+    wvar = variant if variant == "opt-bf16" and shape.kind == "train" \
+        else None
+    key = (arch, shape_name, wvar, n_layers, seq_len)
+    reused = walks is not None and key in walks
+    if reused:
+        w = walks[key]
+    else:
+        w = walk(cfg, shape, wvar, params, batch, cache)
+        if walks is not None:
+            walks[key] = w
+    per_op = w["per_op"]
+    n_dev = layout.size
+    flops = sum(r["flops"] for r in per_op.values())
+    nbytes = sum(r["bytes"] for r in per_op.values())
+    mm = op_cost.matmul_flops(per_op)
+    return {
+        "arch": arch, "shape": shape_name, "kind": shape.kind,
+        "variant": variant, "mesh": dict(zip(layout.axes, layout.shape)),
+        "n_devices": n_dev, "cut": cut,
+        "flops_global": flops, "bytes_global": nbytes,
+        "matmul_flops_global": mm,
+        "flops_per_device": flops / n_dev,
+        "bytes_per_device": nbytes / n_dev,
+        "matmul_flops_per_device": mm / n_dev,
+        "dispatches": int(sum(r["calls"] for r in per_op.values())),
+        "walk_s": w["walk_s"], "walk_reused": reused,
+        "argument_bytes": argument_bytes(cfg, shape, layout, variant,
+                                         params, batch, cache),
+        "argument_bytes_note": ARGUMENT_BYTES_NOTE,
+        "absent": list(ABSENT),
+    }
+
+
+def run_cells(archs: Sequence[str], shapes: Sequence[str], *,
+              multi_pod: bool = False, out_path: Optional[str] = None,
+              walks: Optional[Dict] = None) -> List[Dict[str, Any]]:
+    """Every (arch x shape) cell on one production layout; a failed cell
+    is recorded with its error, a skipped one with its reason."""
+    layout = production_layout(multi_pod=multi_pod)
+    walks = {} if walks is None else walks
+    results = []
+    for arch in archs:
+        for shape_name in shapes:
+            tag = f"{arch} x {shape_name} x " \
+                  f"{'2pod' if multi_pod else '1pod'}"
+            try:
+                r = dry_cell(arch, shape_name, layout=layout, walks=walks)
+                if "skipped" in r:
+                    print(f"SKIP {tag}: {r['skipped']}", flush=True)
+                else:
+                    print(f"OK   {tag}: "
+                          f"flops/dev={r['flops_per_device']:.3e} "
+                          f"matmul/dev={r['matmul_flops_per_device']:.3e} "
+                          f"bytes/dev={r['bytes_per_device']:.3e} "
+                          f"args/dev={r['argument_bytes']['total']} "
+                          f"walk={r['walk_s']:.1f}s", flush=True)
+            except Exception as e:                # record and go on
+                r = {"arch": arch, "shape": shape_name,
+                     "error": f"{type(e).__name__}: {e}",
+                     "traceback": traceback.format_exc()[-2000:]}
+                print(f"FAIL {tag}: {r['error']}", flush=True)
+            r["multi_pod"] = multi_pod
+            results.append(r)
+            if out_path:
+                with open(out_path, "w") as f:
+                    json.dump(results, f, indent=1)
+    return results
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default=None)
+    ap.add_argument("--shape", default=None)
+    ap.add_argument("--all", action="store_true")
+    ap.add_argument("--multi-pod", action="store_true")
+    ap.add_argument("--both-meshes", action="store_true")
+    ap.add_argument("--no-compile", action="store_true",
+                    help="accepted for the reference's CLI; does nothing "
+                         "(the port walks on meta and never compiles)")
+    ap.add_argument("--out", default="dryrun_results.json")
+    args = ap.parse_args(argv)
+
+    archs = ARCHS if (args.all or not args.arch) else [args.arch]
+    shapes = list(SHAPES) if (args.all or not args.shape) else [args.shape]
+    walks: Dict = {}
+    t0 = time.perf_counter()
+    results = run_cells(archs, shapes, multi_pod=args.multi_pod,
+                        out_path=args.out, walks=walks)
+    if args.both_meshes:
+        results += run_cells(archs, shapes, multi_pod=True,
+                             out_path=args.out.replace(".json", "_2pod.json"),
+                             walks=walks)
+    n_ok = sum(1 for r in results if "flops_per_device" in r)
+    n_skip = sum(1 for r in results if "skipped" in r)
+    n_fail = sum(1 for r in results if "error" in r)
+    print(f"\n{n_ok} ok, {n_skip} skipped, {n_fail} failed in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return 0 if n_fail == 0 else 1
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -53,15 +53,6 @@ MATVEC_MODES = ("halo-plan", "ppermute", "allgather")
 PCG_PROLOGUE_PSUMS = 3        # scalars psum'd before the first iteration
 
 
-def _sparsity_constant(bs) -> int:
-    """C_sp: the most blocks in any block row at any level."""
-    best = 0
-    for rows in list(bs.s_rows) + [bs.d_rows]:
-        if rows.size:
-            best = max(best, int(np.bincount(rows).max()))
-    return best
-
-
 def measured_structure_stats(dim: int, depth_probe: int = 9, m: int = 64,
                              eta: float = 0.9) -> Dict:
     """Per-level (blocks/row, halo radius) constants from a probe tree."""
@@ -83,7 +74,7 @@ def measured_structure_stats(dim: int, depth_probe: int = 9, m: int = 64,
                for l in range(tree.depth + 1)]
     dense_per_row = bs.d_rows.shape[0] / (1 << tree.depth)
     return {"per_row": per_row, "dense_per_row": dense_per_row,
-            "row_maxb": list(bs.row_maxb()), "Csp": _sparsity_constant(bs)}
+            "row_maxb": list(bs.row_maxb()), "Csp": bs.sparsity_constant()}
 
 
 def synth_dist_shape(p: int, depth: int, m: int, k: int, stats: Dict

@@ -8,8 +8,8 @@ rank count p = 16 or 32 (the product of its data axes); the ``model`` axis
 replicates the operator.
 
 A layout is plain data: nothing here touches a device or a process group
-until ``make_device_mesh`` is called on an initialised group.  No sharding
-rules are ported (``parallel/sharding.py`` is a later slice).
+until ``make_device_mesh`` is called on an initialised group.  The sharding
+rules (``parallel/sharding.py``) read a layout's axis sizes.
 """
 from __future__ import annotations
 

@@ -13,7 +13,8 @@ over the parameter leaves (the layers recomputed in the backward when
 ``cfg.remat``, the attention's backward recomputing its score tiles), then
 PowerSGD (optional), the cosine schedule and AdamW; the new state is built
 out of place, as the reference's donated ``jax.jit`` step.  ``mesh=`` and
-``rules=`` raise until ``parallel/sharding.py`` is ported.
+``rules=`` raise until the models run under ``parallel/sharding.py``'s
+rules over several ranks.
 """
 from __future__ import annotations
 
@@ -57,8 +58,8 @@ class TrainState:
 def _no_mesh(mesh, rules) -> None:
     if mesh is not None:
         raise NotImplementedError(
-            "training on a mesh needs parallel/sharding.py, which is not "
-            "ported yet")
+            "training on a mesh: the models do not yet run under "
+            "parallel/sharding.py's rules over several ranks")
     _no_rules(rules)
 
 

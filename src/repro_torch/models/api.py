@@ -2,6 +2,7 @@
 every architecture exposes the same entry points.
 
     init_params(cfg, seed, device)                          -> params
+    abstract_params(cfg)                                    -> params on meta
     train_loss(cfg, params, batch)                          -> scalar
     prefill(cfg, params, batch, cache_len)                  -> (logits, cache)
     decode_step(cfg, params, batch, cache, pos)             -> (logits, cache)
@@ -170,6 +171,13 @@ def _check_shapes(cfg, got, want, path="") -> None:
                          f"{tuple(want.shape)}, got {tuple(got.shape)}")
 
 
+def abstract_params(cfg: ModelConfig) -> Dict[str, Any]:
+    """The parameter tree of ``cfg`` on the ``meta`` device: every leaf's
+    shape and dtype, nothing allocated (the reference's ``jax.eval_shape``
+    of ``init_params``; the dry run's stand-in)."""
+    return init_params(cfg, _ShapeOnly())
+
+
 def params_from_numpy(cfg: ModelConfig, tree, device="cuda"
                       ) -> Dict[str, Any]:
     """The reference's parameter pytree (nested dicts of numpy arrays,
@@ -179,5 +187,5 @@ def params_from_numpy(cfg: ModelConfig, tree, device="cuda"
     ``super``/``shared``/``tail``, vision's ``plain``/``cross``, whisper's
     ``enc``/``dec``/``enc_norm``, the experts' ``router``/``moe_w*``)."""
     out = transformer.tree_map(lambda a: _tensor(a, device), dict(tree))
-    _check_shapes(cfg, out, init_params(cfg, _ShapeOnly()))
+    _check_shapes(cfg, out, abstract_params(cfg))
     return out

@@ -3,8 +3,8 @@ MLP -- the port of the reference's ``models/layers.py``.
 
 Pure functions over explicit parameter dicts of tensors.  The reference's
 sharding constraints have no counterpart yet: ``rules=`` or
-``model_size > 1`` raise ``NotImplementedError`` until
-``parallel/sharding.py`` is ported.  Initialisation draws from an explicit
+``model_size > 1`` raise ``NotImplementedError`` until the models run
+under ``parallel/sharding.py``'s rules over several ranks.  Initialisation draws from an explicit
 ``torch.Generator`` (the reference's ``jax.random`` keys); a test that
 compares the two carries the reference's parameters across
 (``models.api.params_from_numpy``).
@@ -34,9 +34,9 @@ MASK = -1e30
 def _no_rules(rules, model_size: int = 1) -> None:
     if rules is not None or model_size > 1:
         raise NotImplementedError(
-            "sharding rules / model_size > 1 need parallel/sharding.py, "
-            "which is not ported yet (ROADMAP Queue 1, the LM substrate's "
-            "training item)")
+            "sharding rules / model_size > 1: the models do not yet run "
+            "under parallel/sharding.py's rules over several ranks "
+            "(ROADMAP Queue 1 item 4)")
 
 
 # ---------------------------------------------------------------------------

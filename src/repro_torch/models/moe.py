@@ -13,7 +13,8 @@ width F is stored as v slices, ``[E*v, D, F/v]``; virtual expert m is
 of one real expert completes its F sum.
 
 Only the reference's single-device branch is ported: ``rules=`` raises
-until ``parallel/sharding.py`` is ported (the training slice).
+until the models run under ``parallel/sharding.py``'s rules over several
+ranks (the reference's expert-parallel ``shard_map``).
 
 Deliberate differences, both within float rounding:
   * ``jax.lax.top_k`` returns ties lowest index first; ``torch.topk``
