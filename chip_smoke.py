@@ -150,7 +150,7 @@ peak memory, a decode step's idle share), prefill + k decode steps
 against a prefill of s + k tokens in float32 with seeded nonzero stub
 inputs (1e-3), and the MoE's dropped choices; no kernel runs there; and
 training (``[train]``): ``launch.train.train`` on qwen3-0.6b at full
-width and depth in bfloat16 (float32 AdamW moments, PowerSGD rank 4), 6
+width and depth in bfloat16 (float32 AdamW moments, PowerSGD rank 4), 4
 steps of 4 x 4,096 tokens (ms a step, tokens/s, peak memory, every
 step's loss and gradient norm, the step's parts by CUDA events and its
 idle share), after its card checks: the attention backward against
@@ -158,14 +158,24 @@ naive autograd at qwen3's head shapes (2e-4), every config's reduced
 float32 gradients on the card against the CPU's (1e-4), a restart drill
 (1 restart, the uninterrupted loss history) and the full parameter tree
 through ``CheckpointManager`` (bitwise); no kernel runs there either;
-and last the LM dry run (``[lmdry]``): the parameter specs and per-device
+then the LM dry run (``[lmdry]``): the parameter specs and per-device
 bytes of all 10 configs at both production layouts, dry cells walked on
 ``meta`` tensors (per-device flops, matmul flops, bytes, argument bytes;
 no launch, no allocation on the card), the abstract parameters and
 decode caches equal to real ones made on the card, the ``meta`` walk of
 a train step equal to the card's own walk operator by operator, and the
 walked flops of ``[train]``'s step and ``[lm]``'s prefill and decode
-step beside the rates their measured times imply.
+step beside the rates their measured times imply; and last the LMs under
+the sharding rules over 4 spawned gloo ranks on the card as a 2 x 2
+``("data", "model")`` mesh (``[lmmesh]``, correctness only): qwen3-0.6b
+at full width (4 of 28 layers, float32) serving 4 x 256 prompts and 8
+greedy decode steps with its KV heads over ``model`` and context
+parallel, training 2 FSDP steps of 4 x 512 tokens with PowerSGD both
+ways, and qwen3-moe-30b-a3b (2 of 48 layers, 64 experts a model rank)
+serving, each held to the one-device port run on each data shard's rows
+(logits 1e-4 of max |logit|, greedy tokens, losses 1e-5, parameters
+1e-5, the MoE's drops per data shard), with every rank's bytes by
+collective kind; no kernel runs there.
 Launch counts are reset just before each path and read just after (graph
 replays launch kernels without their wrappers: logged apart).
 Any failure raises; the last line is the device JSON only on success.
@@ -4780,7 +4790,7 @@ class _MoeDrops:
         from repro_torch.models import moe
         self._orig = moe.moe_ffn
 
-        def counted(cfg, p, x, rules=None):
+        def counted(cfg, p, x, rules=None, mesh=None):
             torch = self.torch
             t = x.shape[0] * x.shape[1]
             probs = torch.softmax((x.reshape(t, -1) @ p["router"]).float(),
@@ -4791,7 +4801,7 @@ class _MoeDrops:
             cap = moe._capacity(cfg, t)
             self.dropped += int((counts - cap).clamp(min=0).sum())
             self.choices += t * cfg.top_k
-            return self._orig(cfg, p, x, rules)
+            return self._orig(cfg, p, x, rules, mesh=mesh)
 
         moe.moe_ffn = counted
         return self
@@ -4981,7 +4991,7 @@ TRAIN_ARCH = "qwen3-0.6b"
 TRAIN_SEED = 0
 TRAIN_SEQ = 4096                # the reference's train_4k sequence length
 TRAIN_BATCH = 4                 # micro-batch: 16,384 tokens a step
-TRAIN_STEPS = 6
+TRAIN_STEPS = 4                 # cut from 6 for the script's time limit
 TRAIN_FLASH = (1, 4096, 16, 8, 128)     # B, S, H, Hkv, hd: qwen3's heads
 TRAIN_FLASH_TOL = 2e-4          # of each gradient's largest entry
 TRAIN_GRAD_TOL = 1e-4           # reduced configs: the card vs the CPU
@@ -5159,10 +5169,10 @@ def train_phase(torch, timer, device: str = "cuda", reduced: bool = False,
     """The training path (``launch/train.py``): ``train()`` runs
     ``qwen3-0.6b`` at full width and depth (28 layers, d 1,024, 16/8 heads
     of 128, vocab 151,936, tied embedding, bfloat16, float32 AdamW
-    moments) for 6 steps of 4 x 4,096 tokens (``SyntheticLM`` seed 0, the
+    moments) for 4 steps of 4 x 4,096 tokens (``SyntheticLM`` seed 0, the
     reference's train_4k length; its global batch of 256 is the 512-chip
     mesh's), PowerSGD rank 4 on, no checkpoints: ms a step (median of steps
-    2-6), tokens/s, peak memory, every step's loss and gradient norm
+    2-4), tokens/s, peak memory, every step's loss and gradient norm
     (finite), the launches of the five kernels (none); the step's parts
     by CUDA events and the device's idle share over one traced step.
     Card checks: ``flash_attention``'s backward against plain autograd
@@ -5589,6 +5599,382 @@ def lmdry_phase(torch, lm: dict, trained: dict, device: str = "cuda",
                 launches=launches, phase_s=t_phase)
 
 
+# ---------------------------------------------------------------------------
+# lmmesh phase: the LMs under the sharding rules over a 2 x 2 mesh
+# ---------------------------------------------------------------------------
+
+LMMESH_DENSE = ("qwen3-0.6b", 4)          # arch, depth (of 28)
+LMMESH_MOE = ("qwen3-moe-30b-a3b", 2)     # arch, depth (of 48)
+LMMESH_SEED = 0
+LMMESH_SERVE = (4, 256, 8)                # B, prompt, greedy decode steps
+LMMESH_TRAIN = (4, 512, 2)                # B, S, steps (PowerSGD on)
+LMMESH_START = 25                         # AdamW step the training starts at
+LMMESH_LOGIT_TOL = 1e-4                   # of the oracle's max |logit|
+LMMESH_LOSS_TOL = 1e-5                    # relative
+# each leaf relative in norm, as tests/test_torch_train.py holds steps (the
+# max |dp| / max |p| is logged: AdamW's first steps from zero moments move
+# a parameter whose gradient is near eps by a rate that rounding shifts)
+LMMESH_PARAM_TOL = 1e-5
+
+
+def _lmmesh_cfg(arch: str, depth: int, reduced: bool):
+    from repro_torch.configs.base import get_config
+    cfg = get_config(arch)
+    if reduced:
+        return cfg.reduced(param_dtype="float32", act_dtype="float32")
+    return dataclasses.replace(cfg, n_layers=depth, param_dtype="float32",
+                               act_dtype="float32")
+
+
+class _ShardDrops:
+    """Counts, per call of ``moe._moe_shard`` (one MoE layer on one data
+    shard's tokens), the (token, expert) choices its capacity drops."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.calls: list = []
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self._orig = moe._moe_shard
+
+        def counted(cfg, p, x, virt_offset=0):
+            torch = self.torch
+            probs = torch.softmax((x @ p["router"]).float(), -1)
+            _, eid = moe.top_k(probs, cfg.top_k)
+            counts = torch.bincount(eid.reshape(-1),
+                                    minlength=cfg.n_experts)
+            cap = moe._capacity(cfg, x.shape[0])
+            self.calls.append(int((counts - cap).clamp(min=0).sum()))
+            return self._orig(cfg, p, x, virt_offset)
+
+        moe._moe_shard = counted
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe._moe_shard = self._orig
+        return False
+
+
+def _lmmesh_serve(torch, cfg, params, toks, steps: int, sync,
+                  rules=None, mesh=None) -> dict:
+    """Prefill ``toks`` and ``steps`` greedy decode steps, on one device
+    or (``mesh``) this rank's part: the global logits of every step
+    [steps + 1, B, V], the tokens [B, steps], the times and, on a mesh,
+    this rank's received bytes by collective kind for the prefill and the
+    first decode step."""
+    from repro_torch.launch.mesh import mesh_comms
+    from repro_torch.models import api
+    from repro_torch.models.transformer import logits_spec
+    from repro_torch.parallel.sharding import assemble
+    mc = mesh_comms(mesh)
+    rows = (lambda t: t) if mc is None else (
+        lambda t: t[mc.coord("data") * t.shape[0] // 2:
+                    (mc.coord("data") + 1) * t.shape[0] // 2])
+    spec = None if mc is None else logits_spec(
+        cfg, rules, api.shard_ctx(cfg, rules, 1, mesh))
+
+    def whole(lg):
+        return lg if mc is None else assemble(lg, spec, mesh)
+
+    def counts():
+        return None if mc is None else mc.bytes_by_kind()
+
+    s = toks.shape[1]
+    if mc is not None:
+        mc.reset_counts()
+    sync()
+    t0 = time.perf_counter()
+    lg, cache = api.prefill(cfg, params, {"tokens": rows(toks)}, rules,
+                            mesh=mesh, cache_len=s + steps)
+    sync()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    bytes_prefill = counts()
+    logits = [whole(lg)]
+    tokens, decode_ms, bytes_decode = [], [], None
+    for i in range(steps):
+        tok = logits[-1].argmax(-1)[:, None]
+        tokens.append(tok)
+        if mc is not None:
+            mc.reset_counts()
+        sync()
+        t0 = time.perf_counter()
+        lg, cache = api.decode_step(
+            cfg, params, {"tokens": rows(tok)}, cache,
+            torch.tensor(s + i, device=toks.device), rules, mesh=mesh)
+        sync()
+        decode_ms.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            bytes_decode = counts()
+        logits.append(whole(lg))
+    return dict(logits=torch.stack(logits), tokens=torch.cat(tokens, 1),
+                prefill_ms=prefill_ms, decode_ms=decode_ms,
+                bytes_prefill=bytes_prefill, bytes_decode=bytes_decode)
+
+
+def _lmmesh_train(torch, cfg, device: str, sync, rules=None,
+                  mesh=None) -> dict:
+    """``LMMESH_TRAIN``'s steps of ``build_train_step`` (AdamW from step
+    ``LMMESH_START``, PowerSGD on) from the seeded state, on one device
+    or this rank's part of a mesh (its data shard's rows of each global
+    batch): losses, step times, the state, this rank's bytes by kind of
+    the last step."""
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch.mesh import mesh_comms
+    from repro_torch.launch.train import (OPT_CFG, PSGD_CFG, TrainState,
+                                          build_train_step,
+                                          init_train_state, make_train_batch)
+    mc = mesh_comms(mesh)
+    b, s, steps = LMMESH_TRAIN if cfg.d_model > 128 else (4, 32, 2)
+    state = init_train_state(cfg, OPT_CFG, LMMESH_SEED, device, mesh, rules,
+                             PSGD_CFG)
+    state = TrainState(state.params, state.opt._replace(step=torch.tensor(
+        LMMESH_START, dtype=torch.int32, device=device)), state.psgd)
+    step_fn = build_train_step(cfg, OPT_CFG, rules, mesh, 100, PSGD_CFG)
+    data = SyntheticLM(vocab=cfg.vocab, seq_len=s, global_batch=b,
+                       seed=LMMESH_SEED)
+    losses, ms, nbytes = [], [], None
+    for i in range(steps):
+        toks = data.batch(i) if mc is None else data.rows(
+            i, mc.coord("data"), mc.layout.axis_size("data"))
+        batch = make_train_batch(cfg, toks, device)
+        if mc is not None:
+            mc.reset_counts()
+        sync()
+        t0 = time.perf_counter()
+        state, met = step_fn(state, batch)
+        losses.append(float(met["loss"]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+        nbytes = None if mc is None else mc.bytes_by_kind()
+    return dict(losses=losses, ms=ms, state=state, bytes=nbytes,
+                tokens=b * s)
+
+
+def _lmmesh_rank_work(rank: int, oracle, on_card: bool, reduced: bool
+                      ) -> dict:
+    """One rank of ``[lmmesh]``: qwen3's serving under ``serve-nofsdp``
+    rules with the KV heads over ``model`` and context parallel, its
+    training under FSDP both ways, the MoE's serving; each held to the
+    one-device ``oracle`` the parent passed (CUDA IPC; the served
+    parameters are views of its global trees).  Returns numbers only."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_test_mesh, mesh_comms
+    from repro_torch.models import api
+    from repro_torch.optim.adamw import spec_leaves, tree_leaves
+    from repro_torch.parallel.sharding import Rules, local_block
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = "cuda" if on_card else "cpu"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    mesh = make_test_mesh(2, 2)
+    ops.reset_launch_counts()
+    toks = oracle["toks"]
+    steps = oracle["dense"]["tokens"].shape[1]
+    out: dict = {}
+
+    def peak():
+        return torch.cuda.max_memory_allocated() if on_card else 0
+
+    def serve(key, cfg, rules):
+        want = oracle[key]
+        # this rank's blocks: views of the parent's seeded global tree
+        params = api.shard_params(cfg, want["params"], rules, mesh)
+        _lmmesh_serve(torch, cfg, params, toks[:, :7], 1, sync, rules,
+                      mesh)                          # warm, untimed
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        with _ShardDrops(torch) as drops:
+            got = _lmmesh_serve(torch, cfg, params, toks, steps, sync,
+                                rules, mesh)
+        scale = float(want["logits"].abs().max())
+        err = [float((a - b).abs().max()) / scale
+               for a, b in zip(got["logits"], want["logits"])]
+        return dict(logit_err=err, tokens_equal=bool(torch.equal(
+            got["tokens"], want["tokens"])), prefill_ms=got["prefill_ms"],
+            decode_ms=got["decode_ms"], bytes_prefill=got["bytes_prefill"],
+            bytes_decode=got["bytes_decode"], peak_bytes=peak(),
+            drops=drops.calls)
+
+    dense = _lmmesh_cfg(*LMMESH_DENSE, reduced)
+    moe = _lmmesh_cfg(*LMMESH_MOE, reduced)
+    for attn_tp in (True, False):
+        out[f"serve/attn_tp={attn_tp}"] = serve(
+            "dense", dense, Rules(fsdp=False, attn_tp=attn_tp))
+    specs_of = {}
+    for attn_tp in (True, False):
+        rules = Rules(attn_tp=attn_tp)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        got = _lmmesh_train(torch, dense, device, sync, rules, mesh)
+        want = oracle["train"]
+        specs_of[attn_tp] = spec_leaves(api.param_specs(
+            dense, rules, mesh_comms(mesh).layout))
+        worst = worst_rel = 0.0
+        world = mesh_comms(mesh).world
+        for p, w, sp in zip(tree_leaves(got["state"].params),
+                            want["params"], specs_of[attn_tp]):
+            diff = p.double() - local_block(w, sp, mesh).double()
+            worst = max(worst, float(diff.abs().max()) /
+                        max(float(w.abs().max()), 1e-30))
+            # every rank's block (a replicated one as often in both sums)
+            sq = world.psum(torch.stack([
+                (diff * diff).sum(), (local_block(w, sp, mesh).double()
+                                      ** 2).sum()]))
+            worst_rel = max(worst_rel, float(sq[0].sqrt() /
+                                             sq[1].sqrt().clamp(min=1e-30)))
+        out[f"train/attn_tp={attn_tp}"] = dict(
+            losses=got["losses"], loss_err=max(
+                abs(a - b) / abs(b) for a, b in zip(got["losses"],
+                                                   want["losses"])),
+            param_err=worst, param_rel=worst_rel, ms=got["ms"],
+            bytes=got["bytes"], peak_bytes=peak(), tokens=got["tokens"])
+        del got
+        if on_card:
+            torch.cuda.empty_cache()
+    out["serve/moe"] = serve("moe", moe, Rules(fsdp=False))
+    out["launches"] = ops.launch_counts()
+    return out
+
+
+def lmmesh_phase(torch, device: str = "cuda", reduced: bool = False,
+                 card: str = "") -> dict:
+    """The LMs under ``parallel/sharding.py``'s rules over 4 spawned gloo
+    ranks on the one card as a 2 x 2 ``("data", "model")`` mesh
+    (correctness only: one card holds no two NCCL ranks, so no scaling is
+    claimed).  qwen3-0.6b at full width (depth cut to 4 of 28, float32):
+    ``prefill`` of 4 x 256 tokens and 8 greedy ``decode_step``s under the
+    ``serve-nofsdp`` rules, with the KV heads over ``model`` and context
+    parallel (``attn_tp`` off: the full config's layout at ``model`` 16);
+    2 ``build_train_step`` steps of 4 x 512 tokens with PowerSGD under
+    FSDP, both ways.  qwen3-moe-30b-a3b at full width (2 of 48 layers, 64
+    experts a model rank): prefill 4 x 256 and 8 greedy decode steps.
+    The oracle is the one-device port on the card, run on each data
+    shard's rows (2 each) and concatenated: logits within 1e-4 of its
+    max |logit| at every step, the greedy tokens equal, the losses within
+    1e-5 relative, the parameters after the steps within 1e-5 of each
+    leaf's max |p|, the MoE's dropped choices equal per data shard and
+    layer.  Logs per-step wall times, each rank's received bytes by
+    collective kind for one prefill, one decode step and one train step,
+    and each rank's peak memory.  ``reduced`` rehearses it on the CPU at
+    the reduced configs."""
+    from repro_torch.models import api
+    from repro_torch.optim.adamw import tree_leaves
+
+    t_phase = time.perf_counter()
+    on_card = device == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    start = tally_start()
+    dense = _lmmesh_cfg(*LMMESH_DENSE, reduced)
+    moe = _lmmesh_cfg(*LMMESH_MOE, reduced)
+    b, s, steps = LMMESH_SERVE if not reduced else (4, 32, 4)
+    gen = torch.Generator().manual_seed(LMMESH_SEED)
+    toks = torch.randint(0, dense.vocab, (b, s), generator=gen).to(device)
+    oracle: dict = {"toks": toks}
+    for key, cfg in (("dense", dense), ("moe", moe)):
+        params = api.init_params(cfg, LMMESH_SEED, device)
+        parts, drops = [], []
+        _lmmesh_serve(torch, cfg, params, toks[:2, :7], 1, sync)   # warm
+        for r in range(2):
+            with _ShardDrops(torch) as dr:
+                parts.append(_lmmesh_serve(torch, cfg, params,
+                                           toks[r * b // 2:(r + 1) * b // 2],
+                                           steps, sync))
+            drops.append(dr.calls)
+        oracle[key] = dict(
+            params=params, logits=torch.cat([p["logits"] for p in parts], 1),
+            tokens=torch.cat([p["tokens"] for p in parts], 0), drops=drops,
+            prefill_ms=[p["prefill_ms"] for p in parts],
+            decode_ms=[statistics.median(p["decode_ms"]) for p in parts])
+    one = _lmmesh_train(torch, dense, device, sync)
+    oracle["train"] = dict(losses=one["losses"], ms=one["ms"], params=[
+        p.detach() for p in tree_leaves(one["state"].params)])
+    del one
+    t_oracle = time.perf_counter() - t_phase
+    ranks = run_ranks(torch, _lmmesh_rank_work, (reduced,), [oracle] * 4,
+                      device)
+    launches, _, _ = launches_that_ran(start)
+    for r in ranks:
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+
+    def kinds(per_comm):
+        out: dict = {}
+        for comm in per_comm.values():
+            for k, v in comm.items():
+                out[k] = out.get(k, 0) + v
+        return out
+
+    what = {"serve/attn_tp=True": f"{LMMESH_DENSE[0]} heads over model",
+            "serve/attn_tp=False": f"{LMMESH_DENSE[0]} context parallel",
+            "serve/moe": f"{LMMESH_MOE[0]} (64 experts a model rank)"}
+    for key, label in what.items():
+        key_o = "moe" if key == "serve/moe" else "dense"
+        for rank, r in enumerate(ranks):
+            v = r[key]
+            log(f"[lmmesh] {label} rank {rank}: prefill {b} x {s} "
+                f"{v['prefill_ms']:.1f} ms, decode steps "
+                f"{[round(x, 1) for x in v['decode_ms']]} ms, logits err / "
+                f"max |logit| {max(v['logit_err']):.2e}, tokens equal "
+                f"{v['tokens_equal']}, peak {v['peak_bytes']} bytes")
+            log(f"[lmmesh] {label} rank {rank} bytes received by kind: "
+                f"prefill {kinds(v['bytes_prefill'])}, one decode step "
+                f"{kinds(v['bytes_decode'])}")
+            require(max(v["logit_err"]) <= LMMESH_LOGIT_TOL,
+                    f"[lmmesh] {label} rank {rank}: logits off by "
+                    f"{max(v['logit_err']):.2e} of max |logit|")
+            require(v["tokens_equal"], f"[lmmesh] {label} rank {rank}: the "
+                    f"greedy tokens differ from the oracle's")
+        log(f"[lmmesh] {label} one-device oracle per data shard: prefill "
+            f"{[round(x, 1) for x in oracle[key_o]['prefill_ms']]} ms, "
+            f"decode step {[round(x, 1) for x in oracle[key_o]['decode_ms']]}"
+            f" ms")
+    want_drops = oracle["moe"]["drops"]
+    for rank, r in enumerate(ranks):
+        d = (rank // 2)
+        got = r["serve/moe"]["drops"]
+        log(f"[lmmesh] MoE rank {rank} (data shard {d}): dropped choices "
+            f"per layer call {got}, oracle {want_drops[d]}")
+        require(got == want_drops[d], f"[lmmesh] MoE rank {rank}: dropped "
+                f"choices {got} != the oracle's {want_drops[d]}")
+    for attn_tp in (True, False):
+        key = f"train/attn_tp={attn_tp}"
+        for rank, r in enumerate(ranks):
+            v = r[key]
+            log(f"[lmmesh] train FSDP attn_tp={attn_tp} rank {rank}: steps "
+                f"{[round(x, 1) for x in v['ms']]} ms ({v['tokens']} tokens "
+                f"a step), losses {v['losses']} (err {v['loss_err']:.2e}), "
+                f"params: worst leaf ||dp|| / ||p|| {v['param_rel']:.2e}, "
+                f"max |dp| / max |p| {v['param_err']:.2e}, peak "
+                f"{v['peak_bytes']} bytes, bytes received by kind in one "
+                f"step {kinds(v['bytes'])}")
+            require(v["loss_err"] <= LMMESH_LOSS_TOL,
+                    f"[lmmesh] {key} rank {rank}: loss off by "
+                    f"{v['loss_err']:.2e}")
+            require(v["param_rel"] <= LMMESH_PARAM_TOL,
+                    f"[lmmesh] {key} rank {rank}: a parameter leaf off by "
+                    f"{v['param_rel']:.2e} relative")
+    log(f"[lmmesh] one-device oracle train steps "
+        f"{[round(x, 1) for x in oracle['train']['ms']]} ms, losses "
+        f"{oracle['train']['losses']}")
+    log(f"[lmmesh] launches of the five kernels over the phase (parent and "
+        f"ranks): {launches}")
+    train_ms = oracle["train"]["ms"]
+    del oracle
+    if on_card:
+        torch.cuda.empty_cache()
+    t_phase = time.perf_counter() - t_phase
+    log(f"[lmmesh] phase took {t_phase:.1f} s (oracle {t_oracle:.1f} s); "
+        f"{card}")
+    return dict(ranks=[{k: {kk: vv for kk, vv in v.items()}
+                        if isinstance(v, dict) else v
+                        for k, v in r.items()} for r in ranks],
+                oracle_train_ms=train_ms, phase_s=t_phase,
+                launches=launches)
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -5750,6 +6136,10 @@ def main() -> int:
     lmdry = lmdry_phase(torch, lm, trained, card=smi)
     for name, n in lmdry["launches"].items():
         log(f"[kernels] {name}: {n} launches on the LM dry run path")
+    lmmesh = lmmesh_phase(torch, card=smi)
+    for name in KERNELS:
+        log(f"[kernels] {name}: {lmmesh['launches'].get(name, 0)} launches "
+            f"on the sharded LM path")
     kernels = []
     for name in KERNELS:
         r = results[name]
@@ -5764,7 +6154,8 @@ def main() -> int:
                       obs_launches[name] + dserve["launches"][name] +
                       tserve["launches"][name] + lm["launches"][name] +
                       trained["launches"][name] +
-                      lmdry["launches"][name]),
+                      lmdry["launches"][name] +
+                      lmmesh["launches"].get(name, 0)),
             max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"]))
@@ -5813,6 +6204,8 @@ def main() -> int:
                               if k != "launches"},
                     "lmdry": {k: v for k, v in lmdry.items()
                               if k != "launches"},
+                    "lmmesh": {k: v for k, v in lmmesh.items()
+                               if k != "launches"},
                     "kernel_detail": detail, "card": smi}))
     log(smi)
     log(json.dumps({"kernels": kernels}))

@@ -10,8 +10,9 @@ tiled=True)``), ``ppermute`` (``lax.ppermute``) and ``all_to_all`` on the
 the distributed solvers' ``psum`` (``lax.psum``), a sum in rank order that
 gives every rank the same bits; and ``broadcast`` and ``scatter``, with
 which the threaded solver service's rank 0 hands every rank its boundary
-decision and the admitted right-hand sides' rows.  ``rank`` is the
-counterpart of ``lax.axis_index``.
+decision and the admitted right-hand sides' rows; and the sharded
+language models' ``reduce_scatter`` (``lax.psum_scatter``) and ``pmax``.
+``rank`` is the counterpart of ``lax.axis_index``.
 
 The transport is chosen once, from the group's backend:
 
@@ -25,7 +26,8 @@ The transport is chosen once, from the group's backend:
 the wire (a rank's own slice of a gather or all-to-all is not counted),
 the quantity ``dist.matvec_comm_bytes`` models; ``recv_by_kind`` splits
 them by collective kind under the reference's HLO names (``all-gather``,
-``collective-permute``, ``all-to-all``, and ``all-reduce`` for ``psum``),
+``collective-permute``, ``all-to-all``, ``reduce-scatter``, and
+``all-reduce`` for ``psum`` and ``pmax``),
 which ``perf.comm_cost`` reads; ``broadcast`` and ``scatter`` count under
 the kind their caller names.
 
@@ -164,9 +166,11 @@ class Comm:
                  tag: int = 0) -> torch.Tensor:
         return self.ppermute_async(x, perm, tag).wait()
 
-    def all_to_all_async(self, buf: torch.Tensor) -> Pending:
+    def all_to_all_async(self, buf: torch.Tensor, kind: str = "all-to-all"
+                         ) -> Pending:
         """``[p, capmax]`` rows: row ``q`` goes to rank ``q``; landed row
-        ``s`` came from rank ``s``."""
+        ``s`` came from rank ``s``.  ``kind``: the name its bytes are
+        counted under."""
         if buf.shape[0] != self.p:
             raise ValueError(f"all_to_all buffer has {buf.shape[0]} rows, "
                              f"group has {self.p} ranks")
@@ -174,12 +178,39 @@ class Comm:
         out = self._empty_wire(tuple(buf.shape), buf)
         work = dist.all_to_all_single(out, src, group=self.group,
                                       async_op=True)
-        self._count("all-to-all",
-                    (self.p - 1) * buf[0].numel() * buf.element_size())
+        self._count(kind, (self.p - 1) * buf[0].numel() * buf.element_size())
         return Pending([work], out, self._finisher(buf), src)
 
-    def all_to_all(self, buf: torch.Tensor) -> torch.Tensor:
-        return self.all_to_all_async(buf).wait()
+    def all_to_all(self, buf: torch.Tensor, kind: str = "all-to-all"
+                   ) -> torch.Tensor:
+        return self.all_to_all_async(buf, kind).wait()
+
+    def reduce_scatter(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """The sum of every rank's ``x``, of which this rank keeps block
+        ``rank`` of ``p`` along ``dim`` (``lax.psum_scatter(...,
+        tiled=True)``).  Gloo has no reduce-scatter of CUDA tensors, so
+        the blocks travel all-to-all and each rank adds the ``p`` landed
+        blocks in rank order; its bytes count as ``reduce-scatter``."""
+        if self.p == 1:
+            return x
+        n = x.shape[dim]
+        if n % self.p:
+            raise ValueError(f"reduce_scatter: dim {dim} ({n}) does not "
+                             f"split over {self.p} ranks")
+        xt = x.movedim(dim, 0)
+        buf = xt.reshape(self.p, n // self.p, *xt.shape[1:])
+        parts = self.all_to_all(buf, "reduce-scatter")
+        out = parts[0]
+        for q in range(1, self.p):
+            out = out + parts[q]
+        return out.movedim(0, dim)
+
+    def pmax(self, t: torch.Tensor) -> torch.Tensor:
+        """``lax.pmax``: the elementwise maximum over the ranks, the same
+        bits on every rank; its bytes count as ``all-reduce``."""
+        if self.p == 1:
+            return t
+        return self.all_gather(t.reshape(1, *t.shape), "all-reduce").amax(0)
 
     def psum(self, t: torch.Tensor) -> torch.Tensor:
         """``lax.psum``: the sum of every rank's ``t``, the same bits on

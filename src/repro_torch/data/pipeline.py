@@ -12,7 +12,9 @@ Two sources:
 Determinism + elasticity contract: batch ``i`` of a run is a pure function
 of (seed, i, shard), so a restarted job resumes mid-stream by step counter
 alone (the checkpoint stores only ``step``).  Each host slices the same
-global batch by its shard index.
+global batch by its shard index: ``rows`` gives a data shard its rows of
+the global batch (the model ranks of one data shard take the same rows),
+so a sharded run trains on the batch a one-device run takes.
 """
 from __future__ import annotations
 
@@ -51,6 +53,16 @@ class SyntheticLM:
             nxt = self.chain[toks[:, t]]
             toks[:, t + 1] = np.where(follow[:, t], nxt, noise[:, t])
         return toks.astype(np.int32)
+
+    def rows(self, step: int, shard: int = 0, n_shards: int = 1
+             ) -> np.ndarray:
+        """Data shard ``shard``'s rows of the global batch ``step``:
+        ``batch(step)[shard * per:(shard + 1) * per]``."""
+        if self.global_batch % n_shards:
+            raise ValueError(f"global batch {self.global_batch} does not "
+                             f"split into {n_shards} shards")
+        per = self.global_batch // n_shards
+        return self.batch(step)[shard * per:(shard + 1) * per]
 
 
 @dataclasses.dataclass

@@ -1,6 +1,7 @@
 """The training loop: train step + checkpoint/restart + straggler monitor +
 optional PowerSGD gradient compression, the port of the reference's
-``repro/launch/train.py`` on one device.
+``repro/launch/train.py``, on one device or over the ranks of a device
+mesh.
 
 Library entry (``train``) and the CLI:
 
@@ -12,9 +13,17 @@ raises).  The step is ``torch.autograd.grad`` of ``models.api.train_loss``
 over the parameter leaves (the layers recomputed in the backward when
 ``cfg.remat``, the attention's backward recomputing its score tiles), then
 PowerSGD (optional), the cosine schedule and AdamW; the new state is built
-out of place, as the reference's donated ``jax.jit`` step.  ``mesh=`` and
-``rules=`` raise until the models run under ``parallel/sharding.py``'s
-rules over several ranks.
+out of place, as the reference's donated ``jax.jit`` step.
+
+With ``mesh=`` (a ``("data", "model")`` ``DeviceMesh``) and ``rules=`` every
+rank holds its blocks of the state (``parallel/sharding.py``'s specs; FSDP
+gathers a layer's parameters over ``data`` inside the layer, so remat
+gathers them again in the backward), trains on its data shard's rows of
+the global batch, and the backward reduces the gradients over ``data``.
+Checkpoints go through rank 0 as one global state (the reference's
+layout, so a mesh checkpoint restores into a one-device run and the other
+way round); after a barrier every rank reads the newest complete step and
+takes its blocks.
 """
 from __future__ import annotations
 
@@ -30,12 +39,13 @@ from repro_torch.checkpoint.manager import CheckpointManager, config_digest
 from repro_torch.configs.base import get_config
 from repro_torch.data.pipeline import SyntheticLM
 from repro_torch.models import api
+from repro_torch.launch.mesh import mesh_comms
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import _no_rules
 from repro_torch.optim import adamw
 from repro_torch.optim.grad_compress import (PowerSGDConfig, PowerSGDState,
                                              compress_and_reduce,
                                              init_state as psgd_init)
+from repro_torch.parallel import sharding as S
 from repro_torch.runtime.fault import (FailureInjector, StragglerMonitor,
                                        StepFailure, run_with_restarts)
 
@@ -55,12 +65,12 @@ class TrainState:
     CKPT_FIELD_PATHS: ClassVar[bool] = True
 
 
-def _no_mesh(mesh, rules) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "training on a mesh: the models do not yet run under "
-            "parallel/sharding.py's rules over several ranks")
-    _no_rules(rules)
+def _specs(cfg, rules, mesh):
+    """The parameter specs of a mesh run (None without a mesh)."""
+    if mesh is None:
+        return None
+    return api.param_specs(cfg, rules if rules is not None else S.Rules(),
+                           mesh_comms(mesh).layout)
 
 
 def build_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
@@ -69,29 +79,34 @@ def build_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
     """``step_fn(state, batch) -> (new_state, metrics)``: the loss and its
     gradients, PowerSGD when ``psgd_cfg``, ``cosine_schedule(step,
     warmup=WARMUP, total=total_steps)`` and ``apply_updates``.  ``metrics``
-    holds ``loss``, ``grad_norm`` and ``lr`` as device tensors."""
-    _no_mesh(mesh, rules)
+    holds ``loss``, ``grad_norm`` and ``lr`` as device tensors.  On a mesh
+    ``state`` holds this rank's blocks and ``batch`` its data shard's rows;
+    the loss and the norm are the global ones on every rank."""
+    specs = _specs(cfg, rules, mesh)
+    api.shard_ctx(cfg, rules, 1, mesh)       # a mesh it cannot run raises
 
     def step_fn(state: TrainState, batch):
         leaves = [p.detach().requires_grad_(True)
                   for p in adamw.tree_leaves(state.params)]
         with torch.enable_grad():
             params = adamw.tree_unflatten(state.params, leaves)
-            loss = api.train_loss(cfg, params, batch)
+            loss = api.train_loss(cfg, params, batch, rules, mesh=mesh)
             grads = torch.autograd.grad(loss, leaves, allow_unused=True,
                                         materialize_grads=True)
         grads = adamw.tree_unflatten(state.params, grads)
         psgd_state = state.psgd
         with torch.no_grad():
             if psgd_cfg is not None:
-                # one device: the compression re-expresses the gradients
-                # low-rank (error-feedback corrected), as the reference's
+                # the gradients are reduced already: the compression
+                # re-expresses them low-rank (error-feedback corrected),
+                # as the reference's axis=None
                 grads, psgd_state = compress_and_reduce(
-                    psgd_cfg, grads, psgd_state, comm=None)
+                    psgd_cfg, grads, psgd_state, mesh=mesh, specs=specs)
             lr_scale = adamw.cosine_schedule(state.opt.step, warmup=WARMUP,
                                              total=total_steps)
             params, opt, metrics = adamw.apply_updates(
-                opt_cfg, state.params, grads, state.opt, lr_scale)
+                opt_cfg, state.params, grads, state.opt, lr_scale,
+                specs=specs, mesh=mesh)
         metrics["loss"] = loss.detach()
         return TrainState(params, opt, psgd_state), metrics
 
@@ -103,12 +118,52 @@ def init_train_state(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
                      psgd_cfg: Optional[PowerSGDConfig] = None
                      ) -> TrainState:
     """Seeded parameters (``models.api.init_params``), zero AdamW moments
-    and, with ``psgd_cfg``, seeded PowerSGD factors, on ``device``."""
-    _no_mesh(mesh, rules)
+    and, with ``psgd_cfg``, seeded PowerSGD factors, on ``device``; on a
+    mesh, this rank's blocks of that global state."""
     params = api.init_params(cfg, seed, device)
-    opt = adamw.init_state(opt_cfg, params)
     psgd = psgd_init(psgd_cfg, params, seed) if psgd_cfg else None
+    if mesh is not None:
+        specs = _specs(cfg, rules, mesh)
+        params = S.tree_local(params, specs, mesh)
+        if psgd is not None:
+            psgd = PowerSGDState(q=psgd.q, err=[
+                None if e is None else S.local_block(e, sp, mesh)
+                for e, sp in zip(psgd.err, adamw.spec_leaves(specs))])
+    opt = adamw.init_state(opt_cfg, params)
     return TrainState(params, opt, psgd)
+
+
+def state_global(cfg: ModelConfig, state: TrainState, rules, mesh
+                 ) -> TrainState:
+    """The global training state from every rank's blocks (every rank
+    calls it and gets the whole state)."""
+    specs = _specs(cfg, rules, mesh)
+    psgd = state.psgd
+    if psgd is not None:
+        psgd = PowerSGDState(q=psgd.q, err=[
+            None if e is None else S.assemble(e, sp, mesh)
+            for e, sp in zip(psgd.err, adamw.spec_leaves(specs))])
+    return TrainState(
+        S.tree_assemble(state.params, specs, mesh),
+        adamw.AdamWState(state.opt.step,
+                         S.tree_assemble(state.opt.m, specs, mesh),
+                         S.tree_assemble(state.opt.v, specs, mesh)), psgd)
+
+
+def state_local(cfg: ModelConfig, state: TrainState, rules, mesh
+                ) -> TrainState:
+    """This rank's blocks of a global training state."""
+    specs = _specs(cfg, rules, mesh)
+    psgd = state.psgd
+    if psgd is not None:
+        psgd = PowerSGDState(q=psgd.q, err=[
+            None if e is None else S.local_block(e, sp, mesh)
+            for e, sp in zip(psgd.err, adamw.spec_leaves(specs))])
+    return TrainState(
+        S.tree_local(state.params, specs, mesh),
+        adamw.AdamWState(state.opt.step,
+                         S.tree_local(state.opt.m, specs, mesh),
+                         S.tree_local(state.opt.v, specs, mesh)), psgd)
 
 
 def train_state_from_numpy(cfg: ModelConfig, tree, device="cuda"
@@ -149,21 +204,39 @@ def train(cfg: ModelConfig, *, steps: int = 50, global_batch: int = 8,
           ) -> Dict[str, Any]:
     """Run the loop; returns the history (``loss`` per completed step,
     ``restarts``, ``stragglers``; also ``grad_norm`` and ``step_s``, the
-    host seconds of each step, synchronised by reading its loss)."""
-    _no_mesh(mesh, rules)
+    host seconds of each step, synchronised by reading its loss).  On a
+    mesh every rank calls it with the same arguments (``ckpt_dir`` one
+    directory that all of them see)."""
     opt_cfg = OPT_CFG
     psgd_cfg = PSGD_CFG if use_psgd else None
     data = SyntheticLM(vocab=cfg.vocab, seq_len=seq_len,
                        global_batch=global_batch, seed=seed)
-    state = init_train_state(cfg, opt_cfg, seed, device, psgd_cfg=psgd_cfg)
-    step_fn = build_train_step(cfg, opt_cfg, total_steps=steps,
+    state = init_train_state(cfg, opt_cfg, seed, device, mesh, rules,
+                             psgd_cfg)
+    step_fn = build_train_step(cfg, opt_cfg, rules, mesh, total_steps=steps,
                                psgd_cfg=psgd_cfg)
+    mc = mesh_comms(mesh)
+    lead = mc is None or mc.world.rank == 0
 
     mgr = CheckpointManager(ckpt_dir) if ckpt_dir else None
+
+    def restore(like):
+        """The newest complete step: (state, step), every rank after a
+        barrier, its blocks on a mesh."""
+        if mc is not None:
+            mc.world.barrier()
+        if mgr.latest_step() is None:
+            return None, None
+        restored, manifest = mgr.restore(like)
+        if mc is not None:
+            restored = state_local(cfg, restored, rules, mesh)
+        return restored, manifest["step"]
+
     start = 0
-    if mgr and resume and mgr.latest_step() is not None:
-        state, manifest = mgr.restore(state)
-        start = manifest["step"]
+    if mgr and resume:
+        restored, step = restore(state)
+        if restored is not None:
+            state, start = restored, step
 
     monitor = StragglerMonitor()
     history = {"loss": [], "restarts": 0, "stragglers": 0,
@@ -172,7 +245,10 @@ def train(cfg: ModelConfig, *, steps: int = 50, global_batch: int = 8,
     del state
 
     def make_batch(step):
-        return make_train_batch(cfg, data.batch(step), device)
+        if mc is None or not (rules or S.Rules()).batch_shardable:
+            return make_train_batch(cfg, data.batch(step), device)
+        return make_train_batch(cfg, data.rows(
+            step, mc.coord("data"), mc.layout.axis_size("data")), device)
 
     def one_step(step):
         if injector:
@@ -190,8 +266,11 @@ def train(cfg: ModelConfig, *, steps: int = 50, global_batch: int = 8,
         history["grad_norm"].append(float(metrics["grad_norm"]))
         history["step_s"].append(dt)
         if mgr and (step + 1) % ckpt_every == 0:
-            mgr.save(step + 1, state_box["state"], block=False,
-                     extra={"config": config_digest(cfg)})
+            whole = state_box["state"] if mc is None else state_global(
+                cfg, state_box["state"], rules, mesh)
+            if lead:
+                mgr.save(step + 1, whole, block=False,
+                         extra={"config": config_digest(cfg)})
         if step % log_every == 0:
             print(f"step {step:5d}  loss {loss:.4f}  {dt*1e3:.0f} ms")
 
@@ -201,11 +280,11 @@ def train(cfg: ModelConfig, *, steps: int = 50, global_batch: int = 8,
             # a save still in flight is the newest checkpoint: wait for it
             # before looking (the reference looks first, then waits)
             mgr.wait()
-        if mgr and mgr.latest_step() is not None:
-            restored, manifest = mgr.restore(state_box["state"])
-            state_box["state"] = restored
-            print(f"RESTART: restored step {manifest['step']}")
-            return manifest["step"]
+            restored, at = restore(state_box["state"])
+            if restored is not None:
+                state_box["state"] = restored
+                print(f"RESTART: restored step {at}")
+                return at
         print("RESTART: no checkpoint, restarting step")
         return step
 
@@ -213,6 +292,8 @@ def train(cfg: ModelConfig, *, steps: int = 50, global_batch: int = 8,
                       on_restart=on_restart)
     if mgr:
         mgr.wait()
+    if mc is not None:
+        mc.world.barrier()
     return history
 
 

@@ -1,10 +1,17 @@
 """Shared layer library: norms, RoPE, flash attention, decode attention,
 MLP -- the port of the reference's ``models/layers.py``.
 
-Pure functions over explicit parameter dicts of tensors.  The reference's
-sharding constraints have no counterpart yet: ``rules=`` or
-``model_size > 1`` raise ``NotImplementedError`` until the models run
-under ``parallel/sharding.py``'s rules over several ranks.  Initialisation draws from an explicit
+Pure functions over explicit parameter dicts of tensors.  On a device
+mesh (``mesh=``, a ``parallel.sharding.ShardCtx``) each rank runs its
+block of the work in the Megatron style, with the collectives placed where
+the reference's sharding constraints make XLA place them: ``attention``
+shards the KV heads over ``model`` (``attn_tp``) or, otherwise, runs
+context parallel on the query blocks with the reference's changed
+blocking; decode attends over a sequence-sharded KV cache, each rank
+combining its partial softmax statistics by psums; ``mlp`` is column- then
+row-parallel over the FFN hidden dim.  Without a mesh the rules only
+change the flash blocking, as the reference's constraints do outside a
+mesh context.  Initialisation draws from an explicit
 ``torch.Generator`` (the reference's ``jax.random`` keys); a test that
 compares the two carries the reference's parameters across
 (``models.api.params_from_numpy``).
@@ -28,15 +35,15 @@ import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
+from repro_torch.parallel import collectives as C
+
 MASK = -1e30
 
 
-def _no_rules(rules, model_size: int = 1) -> None:
-    if rules is not None or model_size > 1:
-        raise NotImplementedError(
-            "sharding rules / model_size > 1: the models do not yet run "
-            "under parallel/sharding.py's rules over several ranks "
-            "(ROADMAP Queue 1 item 4)")
+def _w(mesh, p, name: str, want="stored", split=None):
+    """Parameter ``name`` of ``p``: as it is without a mesh, else in the
+    layout its consumer wants (``ShardCtx.take``)."""
+    return p[name] if mesh is None else mesh.take(p, name, want, split)
 
 
 # ---------------------------------------------------------------------------
@@ -237,18 +244,13 @@ class _FlashAttention(torch.autograd.Function):
         return dq.to(qb.dtype), dk, dv, None, None, None
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool, q_offset: int = 0,
-                    block_q: int = 512, block_kv: int = 1024,
-                    rules=None, model_size: int = 1) -> torch.Tensor:
-    """Memory-efficient attention: online softmax over KV blocks, query
-    blocks as a leading batch dimension, and a backward that recomputes
-    the score tiles (``_FlashAttention``).  q: [B,S,H,dh], k/v:
-    [B,Sk,Hkv,dh] (grouped-query: H a multiple of Hkv)."""
-    _no_rules(rules, model_size)
-    b, s, h, hd = q.shape
-    sk, hkv = k.shape[1], k.shape[2]
-    g = h // hkv
+def flash_blocks(s: int, sk: int, block_q: int, block_kv: int,
+                 cp: int = 1) -> Tuple[int, int, int, int]:
+    """(nq, bq, nkv, bkv): the reference's flash blocking of an
+    ``s``-query, ``sk``-key attention (a length that the block does not
+    divide is one block).  ``cp`` > 1 is context parallelism over that
+    many model ranks: the query blocks are re-cut so that their count
+    divides over the ranks (one block when ``s`` does not divide)."""
     bq = min(block_q, s)
     bkv = min(block_kv, sk)
     nq, nkv = s // bq, sk // bkv
@@ -256,20 +258,56 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         nq, bq = 1, s
     if sk % bkv:
         nkv, bkv = 1, sk
-    scale = 1.0 / math.sqrt(hd)
-    qb = q.reshape(b, nq, bq, hkv, g, hd).float()
+    if cp > 1:
+        if s % cp == 0:
+            nq = cp * max(1, s // (bq * cp))
+            bq = s // nq
+        else:
+            nq, bq = 1, s
+    return nq, bq, nkv, bkv
+
+
+def _flash(q, k, v, causal: bool, q_offset: int, nq: int, bq: int,
+           nkv: int, bkv: int) -> torch.Tensor:
+    """``_FlashAttention`` of q [B, nq*bq, H, dh] (query rows from
+    ``q_offset`` on) against k/v [B, nkv*bkv, Hkv, dh]."""
+    b, s, h, hd = q.shape
+    hkv = k.shape[2]
+    qb = q.reshape(b, nq, bq, hkv, h // hkv, hd).float()
     kb = k.reshape(b, nkv, bkv, hkv, hd)
     vb = v.reshape(b, nkv, bkv, hkv, hd)
-    out = _FlashAttention.apply(qb, kb, vb, causal, scale, q_offset)
+    out = _FlashAttention.apply(qb, kb, vb, causal, 1.0 / math.sqrt(hd),
+                                q_offset)
     return out.reshape(b, s, h, hd).to(q.dtype)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool, q_offset: int = 0,
+                    block_q: int = 512, block_kv: int = 1024,
+                    rules=None, model_size: int = 1) -> torch.Tensor:
+    """Memory-efficient attention: online softmax over KV blocks, query
+    blocks as a leading batch dimension, and a backward that recomputes
+    the score tiles (``_FlashAttention``).  q: [B,S,H,dh], k/v:
+    [B,Sk,Hkv,dh] (grouped-query: H a multiple of Hkv).  With ``rules``
+    and ``model_size`` > 1 whose KV heads do not shard (``attn_tp`` off,
+    or ``Hkv`` not divisible), the query blocks are cut for context
+    parallelism, as the reference's are (``flash_blocks``)."""
+    s, sk, hkv = q.shape[1], k.shape[1], k.shape[2]
+    cp = model_size if (rules is not None and model_size > 1 and not (
+        rules.attn_tp and hkv % model_size == 0)) else 1
+    return _flash(q, k, v, causal, q_offset,
+                  *flash_blocks(s, sk, block_q, block_kv, cp))
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, length_mask: torch.Tensor,
-                     rules=None) -> torch.Tensor:
+                     rules=None, comm=None) -> torch.Tensor:
     """One-token attention against a KV cache.  q: [B,1,H,dh]; caches:
-    [B,S,Hkv,dh]; length_mask: [B, S] bool (True = valid)."""
-    _no_rules(rules)
+    [B,S,Hkv,dh]; length_mask: [B, S] bool (True = valid).  With a
+    ``comm`` the caches are this rank's block of a cache sequence-sharded
+    over its ranks: each rank takes its slots' scores, the maximum is a
+    ``pmax`` and the softmax denominator and the weighted values are
+    psums (the reference's reductions over the sharded axis)."""
     b, _, h, hd = q.shape
     hkv = k_cache.shape[2]
     g = h // hkv
@@ -277,8 +315,14 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     qh = q.reshape(b, hkv, g, hd).float()
     sc = torch.einsum("bhgd,bshd->bhgs", qh, k_cache.float()) * scale
     sc = torch.where(length_mask[:, None, None, :], sc, MASK)
-    p_ = torch.softmax(sc, dim=-1)
-    out = torch.einsum("bhgs,bshd->bhgd", p_, v_cache.float())
+    if comm is None or comm.p == 1:
+        p_ = torch.softmax(sc, dim=-1)
+        out = torch.einsum("bhgs,bshd->bhgd", p_, v_cache.float())
+    else:
+        p_ = torch.exp(sc - C.pmax(sc.amax(-1, keepdim=True), comm))
+        den = C.reduce_from(p_.sum(-1, keepdim=True), comm)
+        out = C.reduce_from(
+            torch.einsum("bhgs,bshd->bhgd", p_, v_cache.float()), comm) / den
     return out.reshape(b, 1, h, hd).to(q.dtype)
 
 
@@ -297,7 +341,7 @@ def attention(cfg, p, x, *, rules=None, model_size: int = 1,
               rope: bool = True,
               cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
               pos: Optional[torch.Tensor] = None,
-              static_cache: bool = False):
+              static_cache: bool = False, mesh=None):
     """Full attention sub-layer.  Returns (out [B,S,D], new_cache or None).
 
     Modes:
@@ -307,8 +351,14 @@ def attention(cfg, p, x, *, rules=None, model_size: int = 1,
         write position; returns the updated cache (new tensors).
       - decode cross-attention: ``static_cache=True`` -- attend to a fixed
         cache, nothing appended.
+
+    On a mesh (``_attention_mesh``) ``x`` is this rank's residual stream
+    and the caches are its blocks.
     """
-    _no_rules(rules, model_size)
+    if mesh is not None:
+        return _attention_mesh(cfg, p, x, mesh, causal=causal, x_kv=x_kv,
+                               rope=rope, cache=cache, pos=pos,
+                               static_cache=static_cache)
     b, s, _ = x.shape
     q, k, v = _qkv(cfg, p, x, x_kv)
     if cache is not None and static_cache:
@@ -324,7 +374,8 @@ def attention(cfg, p, x, *, rules=None, model_size: int = 1,
             k = apply_rope(k, pid, cfg.rope_theta)
         out = flash_attention(q, k, v, causal=causal and x_kv is None,
                               block_q=cfg.flash_block_q,
-                              block_kv=cfg.flash_block_kv)
+                              block_kv=cfg.flash_block_kv, rules=rules,
+                              model_size=model_size)
         new_cache = (k, v)
     else:                      # self-attention decode: append to cache
         kc, vc = cache
@@ -357,13 +408,128 @@ def mlp_params(cfg, gen: torch.Generator, dtype) -> Dict[str, Any]:
             "w2": dense_init(gen, (f, d), dtype)}
 
 
-def mlp(cfg, p, x, rules=None):
-    _no_rules(rules)
-    h = x @ p["w1"]
+def ffn_act(cfg, h, h3=None):
+    """The FFN's activation of ``h = x @ w1`` (``h3 = x @ w3`` for
+    swiglu)."""
     if cfg.act == "swiglu":
-        h = F.silu(h) * (x @ p["w3"])
-    elif cfg.act == "sq_relu":            # nemotron squared ReLU
-        h = torch.square(F.relu(h))
-    else:                                 # jax.nn.gelu's tanh form
-        h = F.gelu(h, approximate="tanh")
-    return h @ p["w2"]
+        return F.silu(h) * h3
+    if cfg.act == "sq_relu":              # nemotron squared ReLU
+        return torch.square(F.relu(h))
+    return F.gelu(h, approximate="tanh")  # jax.nn.gelu's tanh form
+
+
+def mlp(cfg, p, x, rules=None, mesh=None):
+    """The FFN.  On a mesh whose model axis divides the hidden width it is
+    column- then row-parallel (the residual stream gathered in, the
+    partial sums reduce-scattered out); otherwise each rank runs the whole
+    FFN on its own rows."""
+    if mesh is not None and mesh.tp_ok(cfg.d_ff):
+        xf = mesh.enter(x)
+        h3 = xf @ mesh.take(p, "w3", -1) if cfg.act == "swiglu" else None
+        h = ffn_act(cfg, xf @ mesh.take(p, "w1", -1), h3)
+        return mesh.leave(h @ mesh.take(p, "w2", 0))
+    want = None if mesh is not None else "stored"
+    h3 = x @ _w(mesh, p, "w3", want) if cfg.act == "swiglu" else None
+    h = ffn_act(cfg, x @ _w(mesh, p, "w1", want), h3)
+    return h @ _w(mesh, p, "w2", want)
+
+
+def _attention_mesh(cfg, p, x, ctx, *, causal, x_kv, rope, cache, pos,
+                    static_cache):
+    """``attention`` on one rank of a mesh.
+
+    Heads mode (``ctx.heads_tp``): the projections are column blocks of
+    this rank's heads, the output projection a row block whose partial
+    sums leave by a reduce-scatter (or a psum).  Context-parallel mode
+    (the KV heads do not shard, the sequence divides): the weights are
+    whole, this rank computes the queries of its block of rows (the
+    reference's re-cut query blocks) against every key.  Otherwise every
+    rank computes the whole attention.  Decode writes the new K/V into the
+    sequence shard that owns slot ``pos`` and attends over the
+    sequence-sharded cache (``decode_attention(comm=)``); the static cross
+    caches keep the prefill's layout (this rank's heads, or whole)."""
+    m, hd = ctx.m, cfg.hd
+    tp = ctx.heads_tp(cfg)
+    b, s_loc, _ = x.shape
+    s = s_loc * m if ctx.sp else s_loc
+    cp = not tp and m > 1 and s % m == 0
+    split = tp or cp
+    hq = cfg.n_heads // m if tp else cfg.n_heads
+    hk = cfg.n_kv_heads // m if tp else cfg.n_kv_heads
+    col = -1 if tp else None
+
+    def project(inp, wname, bname, nh, norm):
+        y = inp @ ctx.take(p, wname, col, split)
+        if cfg.qkv_bias:
+            y = y + ctx.take(p, bname, col, split)
+        y = y.reshape(*inp.shape[:2], nh, hd)
+        if cfg.qk_norm and norm:
+            y = rms_norm(y, ctx.take(p, norm, None, split), cfg.norm_eps)
+        return y
+
+    q_off = 0
+    if cache is not None or not split:       # decode, or all replicated
+        xq = C.copy_to(x, ctx.model) if split else x
+        xk = xq
+    elif tp:
+        xq = xk = ctx.enter(x)
+    elif ctx.sp:                             # context parallel, my rows
+        xq, xk, q_off = x, ctx.enter(x), ctx.t * s_loc
+    else:
+        xk = C.copy_to(x, ctx.model)
+        xq, q_off = ctx.rows(xk), ctx.t * (s // m)
+    if x_kv is not None:
+        xk = C.copy_to(x_kv, ctx.model) if split else x_kv
+    q = project(xq, "wq", "bq", hq, "q_norm")
+    k = project(xk, "wk", "bk", hk, "k_norm")
+    v = project(xk, "wv", "bv", hk, None)
+
+    if cache is not None and static_cache:
+        kc, vc = cache
+        valid = torch.ones((b, kc.shape[1]), dtype=torch.bool,
+                           device=x.device)
+        out = decode_attention(q, kc, vc, valid)
+        new_cache = cache
+    elif cache is None:
+        sq, sk = q.shape[1], k.shape[1]
+        if rope and x_kv is None:
+            dev = x.device
+            q = apply_rope(q, q_off + torch.arange(sq, device=dev),
+                           cfg.rope_theta)
+            k = apply_rope(k, torch.arange(sk, device=dev), cfg.rope_theta)
+        nq, bq, nkv, bkv = flash_blocks(
+            s, sk, cfg.flash_block_q, cfg.flash_block_kv,
+            m if not tp else 1)
+        out = _flash(q, k, v, causal and x_kv is None, q_off,
+                     nq // m if cp else nq, bq, nkv, bkv)
+        new_cache = (k, v)
+    else:                      # self-attention decode: the sharded cache
+        kc, vc = cache
+        pos = torch.as_tensor(pos, device=x.device)
+        if rope:
+            pp = pos.reshape(1) if pos.dim() == 0 else pos
+            q = apply_rope(q, pp, cfg.rope_theta)
+            k = apply_rope(k, pp, cfg.rope_theta)
+        if tp:                 # every head, for the sequence-sharded cache
+            q, k, v = (C.all_gather(z, 2, ctx.model, "slice")
+                       for z in (q, k, v))
+        idx, n = ctx.seq_block()
+        cl = kc.shape[1]
+        slots = idx * cl + torch.arange(cl, device=x.device)
+        hit = (slots == pos.clamp(0, cl * n - 1))[None, :, None, None]
+        kc = torch.where(hit, k.to(kc.dtype), kc)
+        vc = torch.where(hit, v.to(vc.dtype), vc)
+        valid = (slots[None, :] <= pos).expand(b, cl)
+        out = decode_attention(q, kc, vc, valid, comm=ctx.seq_comm())
+        if tp:
+            out = ctx.rows(out, 2)
+        new_cache = (kc, vc)
+    out = out.reshape(b, out.shape[1], hq * hd)
+    if tp:
+        y = out @ ctx.take(p, "wo", 0)
+        return (ctx.leave(y) if cache is None else
+                C.reduce_from(y, ctx.model)), new_cache
+    y = out @ ctx.take(p, "wo", None, split)
+    if cp and not ctx.sp:
+        y = C.all_gather(y, 1, ctx.model, "slice")
+    return y, new_cache

@@ -13,6 +13,14 @@ the chunk does not divide is one chunk, whose ``[B, 1, T, T, H]`` float32
 decay tensor grows with the square of the length).  In training its chunk
 steps of the carried state run under ``layers.remat`` when ``cfg.remat``,
 the reference's ``jax.checkpoint`` of ``chunk_step``.
+
+On a device mesh (``mesh=``) the residual stream is replicated over
+``model`` and the block is head-parallel, as the reference's constraints
+on z and xc: ``in_proj``'s column blocks are gathered into the whole
+projection, of which this rank keeps z, xc and dt of its heads and the
+shared B and C; the carried ssm state holds its heads (the conv state is
+whole); ``out_norm``'s statistics over the whole width are psums and the
+output projection's partial sums are summed over ``model``.
 """
 from __future__ import annotations
 
@@ -21,7 +29,8 @@ from typing import Any, Dict, Optional
 import torch
 import torch.nn.functional as F
 
-from .layers import _no_rules, _full, dense_init, remat, rms_norm
+from repro_torch.parallel import collectives as C
+from .layers import _full, _w, dense_init, remat, rms_norm
 
 CONV_W = 4
 
@@ -120,34 +129,67 @@ def ssd_chunked(x, b_in, c_in, a, d_skip, state0, chunk: int = 64,
     return y.to(x.dtype), s.to(x.dtype)
 
 
+def _in_proj_mesh(h, p, mesh):
+    """``h @ in_proj`` whole on every model rank: column blocks gathered
+    along the last dim (each rank keeps parts of every block, so the
+    backward sums the partial gradients), or the whole weight."""
+    if mesh.param_dim(p, "in_proj") == 1:
+        y = C.copy_to(h, mesh.model) @ mesh.take(p, "in_proj")
+        return C.all_gather(y, -1, mesh.model)
+    return C.copy_to(h, mesh.model) @ mesh.take(p, "in_proj", None, True)
+
+
 def mamba_block(cfg, p, x, *, rules=None, state=None, use_chunked=True,
-                train: bool = False):
+                train: bool = False, mesh=None):
     """x: [B,T,D].  state = (ssm [B,H,P,N], conv [B,W-1,C]) or None.
-    Returns (x, new_state); the ssm state in x's dtype."""
-    _no_rules(rules)
+    Returns (x, new_state); the ssm state in x's dtype.  On a mesh whose
+    model axis divides the heads, the ssm state holds this rank's
+    heads."""
     bsz, t, d = x.shape
     d_in = 2 * d
     n = cfg.ssm_state
     hd = cfg.mamba_head_dim
     nh = d_in // hd
+    tp = mesh is not None and mesh.tp_ok(nh)
+    whole = "stored" if mesh is None else None
     ssm_s, conv_s = state if state is not None else (None, None)
 
-    h = rms_norm(x, p["norm"], cfg.norm_eps)
-    zxbcdt = h @ p["in_proj"]
+    h = rms_norm(x, _w(mesh, p, "norm", whole), cfg.norm_eps)
+    zxbcdt = _in_proj_mesh(h, p, mesh) if tp else \
+        h @ _w(mesh, p, "in_proj", whole)
     z, xbc, dt = torch.split(zxbcdt, [d_in, d_in + 2 * n, nh], dim=-1)
-    xbc, conv_s = _causal_conv(xbc, p["conv_w"], p["conv_b"], conv_s)
+    xbc, conv_s = _causal_conv(xbc, _w(mesh, p, "conv_w", whole, tp or None),
+                               _w(mesh, p, "conv_b", whole, tp or None),
+                               conv_s)
     xc, b_in, c_in = torch.split(xbc, [d_in, n, n], dim=-1)
-    v = dt.float() + p["dt_bias"]
+    heads = (lambda y: mesh.rows(y, -1)) if tp else (lambda y: y)
+    z, xc, dt = heads(z), heads(xc), heads(dt)
+    hcol = -1 if tp else whole
+    if tp:
+        nh, d_in = nh // mesh.m, d_in // mesh.m
+    v = dt.float() + _w(mesh, p, "dt_bias", hcol)
     dt_ = torch.logaddexp(v, torch.zeros((), device=x.device))  # softplus
-    a = torch.exp(-torch.exp(p["a_log"].float()) * dt_)
+    a = torch.exp(-torch.exp(_w(mesh, p, "a_log", hcol).float()) * dt_)
     xh = (xc * dt_.repeat_interleave(hd, dim=-1)).reshape(bsz, t, nh, hd)
     if ssm_s is None:
         ssm_s = torch.zeros((bsz, nh, hd, n), dtype=x.dtype, device=x.device)
+    d_skip = _w(mesh, p, "d_skip", hcol)
     if t == 1 or not use_chunked:
-        y, ssm_s = ssd_scan(xh, b_in, c_in, a, p["d_skip"], ssm_s)
+        y, ssm_s = ssd_scan(xh, b_in, c_in, a, d_skip, ssm_s)
     else:
-        y, ssm_s = ssd_chunked(xh, b_in, c_in, a, p["d_skip"], ssm_s,
+        y, ssm_s = ssd_chunked(xh, b_in, c_in, a, d_skip, ssm_s,
                                remat_steps=train and cfg.remat)
     y = y.reshape(bsz, t, d_in)
-    y = (rms_norm(y, p["out_norm"], cfg.norm_eps) * F.silu(z)).to(x.dtype)
-    return x + y @ p["out_proj"], (ssm_s.to(x.dtype), conv_s)
+    if tp:                 # out_norm's statistics over every rank's heads
+        y32 = y.float()
+        ms = C.psum((y32 * y32).sum(-1, keepdim=True), mesh.model) / (
+            d_in * mesh.m)
+        y = ((y32 * torch.rsqrt(ms + cfg.norm_eps) *
+              mesh.take(p, "out_norm", -1).float()).to(y.dtype) *
+             F.silu(z)).to(x.dtype)
+        return x + C.reduce_from(y @ mesh.take(p, "out_proj", 0),
+                                 mesh.model), (ssm_s.to(x.dtype), conv_s)
+    y = (rms_norm(y, _w(mesh, p, "out_norm", whole), cfg.norm_eps) *
+         F.silu(z)).to(x.dtype)
+    return x + y @ _w(mesh, p, "out_proj", whole), (ssm_s.to(x.dtype),
+                                                     conv_s)

@@ -12,9 +12,13 @@ width F is stored as v slices, ``[E*v, D, F/v]``; virtual expert m is
 (real expert m // v, F-slice m % v), and the scatter-add over the slices
 of one real expert completes its F sum.
 
-Only the reference's single-device branch is ported: ``rules=`` raises
-until the models run under ``parallel/sharding.py``'s rules over several
-ranks (the reference's expert-parallel ``shard_map``).
+On a device mesh (``mesh=``) it is the reference's expert-parallel
+``shard_map``: each rank routes every token of its data shard (the
+router and the capacity per data shard, ``_capacity(cfg, t_loc)``),
+computes its ``E*v/m`` virtual experts from ``model_rank * E*v/m`` on, and
+the partial outputs are summed over ``model`` (for virtual experts the
+sum also adds the F slices).  So a mesh run equals the one-device model
+run separately on each data shard's rows.
 
 Deliberate differences, both within float rounding:
   * ``jax.lax.top_k`` returns ties lowest index first; ``torch.topk``
@@ -33,7 +37,7 @@ from typing import Any, Dict, Tuple
 import torch
 import torch.nn.functional as F
 
-from .layers import _no_rules, dense_init
+from .layers import dense_init
 
 
 def moe_params(cfg, gen: torch.Generator, dtype) -> Dict[str, Any]:
@@ -80,10 +84,13 @@ def _dispatch_indices(eid_flat: torch.Tensor, k: int, n_exp: int, cap: int):
     return flat // k, flat % k, valid
 
 
-def _moe_shard(cfg, p, x: torch.Tensor) -> torch.Tensor:
-    """The single device's output. x: [T, D]; p holds every virtual
-    expert's [E*v, D, F/v] weights.  Returns [T, D] in the promoted dtype
-    of the gated expert outputs (float32)."""
+def _moe_shard(cfg, p, x: torch.Tensor, virt_offset: int = 0
+               ) -> torch.Tensor:
+    """One shard's contribution. x: [T, D]; p holds the router and the
+    shard's ``e_loc`` virtual experts' [e_loc, D, F/v] weights from
+    ``virt_offset`` on (every one on a single device).  Returns the
+    partial output [T, D] in the promoted dtype of the gated expert
+    outputs (float32)."""
     t, d = x.shape
     v = max(getattr(cfg, "moe_virtual", 1), 1)
     e_loc = p["moe_w1"].shape[0]
@@ -95,7 +102,8 @@ def _moe_shard(cfg, p, x: torch.Tensor) -> torch.Tensor:
     tok, slot, valid = _dispatch_indices(eid.reshape(-1), cfg.top_k,
                                          cfg.n_experts, cap)
 
-    real_ids = torch.arange(e_loc, device=x.device) // v        # [e_loc]
+    real_ids = (virt_offset +
+                torch.arange(e_loc, device=x.device)) // v      # [e_loc]
     tok_l, slot_l, val_l = tok[real_ids], slot[real_ids], valid[real_ids]
 
     xin = x.index_select(0, tok_l.reshape(-1)).reshape(e_loc, cap, d)
@@ -117,9 +125,25 @@ def _moe_shard(cfg, p, x: torch.Tensor) -> torch.Tensor:
     return y.index_add(0, tok_l.reshape(-1), out.reshape(-1, d))
 
 
-def moe_ffn(cfg, p, x: torch.Tensor, rules=None) -> torch.Tensor:
-    """x: [B, S, D] -> [B, S, D]."""
-    _no_rules(rules)
+def moe_ffn(cfg, p, x: torch.Tensor, rules=None, mesh=None
+            ) -> torch.Tensor:
+    """x: [B, S, D] -> [B, S, D]; on a mesh ``x`` is this rank's residual
+    stream (gathered along the sequence for the routing, the partial
+    outputs reduce-scattered back)."""
+    if mesh is not None:
+        ev = cfg.n_experts * max(getattr(cfg, "moe_virtual", 1), 1)
+        if ev % mesh.m:
+            raise ValueError(f"{ev} virtual experts do not split over "
+                             f"{mesh.m} model ranks")
+        xf = mesh.enter(x)
+        b, s, d = xf.shape
+        local = {"router": mesh.take(p, "router", None, True)}
+        for k in p:
+            if k.startswith("moe_"):
+                local[k] = mesh.take(p, k, 0)
+        y = _moe_shard(cfg, local, xf.reshape(-1, d),
+                       mesh.t * (ev // mesh.m))
+        return mesh.leave(y.reshape(b, s, d)).to(x.dtype)
     b, s, d = x.shape
     y = _moe_shard(cfg, p, x.reshape(-1, d))
     return y.reshape(b, s, d).to(x.dtype)

@@ -21,6 +21,14 @@ blocks, run as a Python loop over the layers.  In training
 (``rwkv_backbone(train=True)``) each layer and each chunk step of the
 carried state run under ``layers.remat`` when ``cfg.remat``, at the
 reference's ``jax.checkpoint`` sites.
+
+On a device mesh (``mesh=``) the residual stream is replicated over
+``model`` and the time mix is head-parallel, as the reference's
+constraints on r/k/v: the projections are column blocks of this rank's
+heads, the carried wkv state holds its heads, ``ln_x``'s statistics over
+the whole width are psums, and the output projection's partial sums are
+summed over ``model``; the channel mix is column- then row-parallel over
+the FFN hidden width.
 """
 from __future__ import annotations
 
@@ -29,7 +37,8 @@ from typing import Any, Dict, Optional
 import torch
 import torch.nn.functional as F
 
-from .layers import _no_rules, _full, dense_init, remat, rms_norm
+from repro_torch.parallel import collectives as C
+from .layers import _full, _w, dense_init, remat, rms_norm
 from .transformer import _embed, _stack, layer, unstack
 
 _WL_MAX = 1.2          # clamp on pre-decay so chunk-16 stays in f32 range
@@ -142,27 +151,38 @@ def wkv_chunked(r, k, v, w, u, state0, chunk: int = 16,
 
 
 def time_mix(cfg, p, x, *, rules=None, state=None, last_tok=None,
-             use_chunked=True, train: bool = False):
+             use_chunked=True, train: bool = False, mesh=None):
     """RWKV6 attention analogue.  x: [B,T,D].
-    state: [B,H,N,N] carried wkv state; last_tok: [B,D] previous token."""
-    _no_rules(rules)
+    state: [B,H,N,N] carried wkv state; last_tok: [B,D] previous token.
+    On a mesh whose model axis divides the heads, this rank's heads."""
     b, t, d = x.shape
     hs = cfg.rwkv_head_size
     nh = d // hs
-    xr = _token_shift(x, p["mu_r"], last_tok)
-    xk = _token_shift(x, p["mu_k"], last_tok)
-    xv = _token_shift(x, p["mu_v"], last_tok)
-    xw = _token_shift(x, p["mu_w"], last_tok)
-    xg = _token_shift(x, p["mu_g"], last_tok)
-    r = (xr @ p["r_proj"]).reshape(b, t, nh, hs)
-    k = (xk @ p["k_proj"]).reshape(b, t, nh, hs)
-    v = (xv @ p["v_proj"]).reshape(b, t, nh, hs)
-    g = F.silu(xg @ p["g_proj"])
+    tp = mesh is not None and mesh.tp_ok(nh)
+    nh = nh // mesh.m if tp else nh
+    col = -1 if tp else ("stored" if mesh is None else None)
+    mp = (lambda z: C.copy_to(z, mesh.model)) if tp else (lambda z: z)
+
+    def w_(name, want=col):
+        return _w(mesh, p, name, want)
+
+    mu = "stored" if mesh is None else None
+    xr = _token_shift(x, w_("mu_r", mu), last_tok)
+    xk = _token_shift(x, w_("mu_k", mu), last_tok)
+    xv = _token_shift(x, w_("mu_v", mu), last_tok)
+    xw = _token_shift(x, w_("mu_w", mu), last_tok)
+    xg = _token_shift(x, w_("mu_g", mu), last_tok)
+    r = (mp(xr) @ w_("r_proj")).reshape(b, t, nh, hs)
+    k = (mp(xk) @ w_("k_proj")).reshape(b, t, nh, hs)
+    v = (mp(xv) @ w_("v_proj")).reshape(b, t, nh, hs)
+    g = F.silu(mp(xg) @ w_("g_proj"))
     # data-dependent decay (Finch): w = exp(-exp(wl)), wl clamped
-    wl = p["w_bias"] + torch.tanh(xw @ p["w_lora_a"]) @ p["w_lora_b"]
+    lora_a = p["w_lora_a"] if mesh is None else \
+        mesh.take(p, "w_lora_a", None, tp)
+    wl = w_("w_bias") + torch.tanh(mp(xw) @ lora_a) @ w_("w_lora_b")
     wl = torch.clamp(wl.float(), -20.0, _WL_MAX)
     w = torch.exp(-torch.exp(wl)).reshape(b, t, nh, hs)
-    u = p["u_bonus"]
+    u = w_("u_bonus", 0 if tp else col)
     if state is None:
         state = torch.zeros((b, nh, hs, hs), dtype=x.dtype, device=x.device)
     if t == 1 or not use_chunked:
@@ -170,30 +190,45 @@ def time_mix(cfg, p, x, *, rules=None, state=None, last_tok=None,
     else:
         out, state = wkv_chunked(r, k, v, w, u, state,
                                  remat_steps=train and cfg.remat)
-    out = out.reshape(b, t, d)
-    out = rms_norm(out, p["ln_x"], cfg.norm_eps) * g
-    return out @ p["o_proj"], state
+    out = out.reshape(b, t, nh * hs)
+    if tp:                 # ln_x's statistics over every rank's heads
+        o32 = out.float()
+        ms = C.psum((o32 * o32).sum(-1, keepdim=True), mesh.model) / d
+        out = (o32 * torch.rsqrt(ms + cfg.norm_eps) *
+               w_("ln_x").float()).to(out.dtype) * g
+        return C.reduce_from(out @ w_("o_proj", 0), mesh.model), state
+    out = rms_norm(out, w_("ln_x"), cfg.norm_eps) * g
+    return out @ w_("o_proj"), state
 
 
-def channel_mix(cfg, p, x, last_tok=None):
-    xk = _token_shift(x, p["mu_ck"], last_tok)
-    h = torch.square(F.relu(xk @ p["cm_k"]))
-    rr = torch.sigmoid(x @ p["cm_r"])
-    return rr * (h @ p["cm_v"])
+def channel_mix(cfg, p, x, last_tok=None, mesh=None):
+    """On a mesh whose model axis divides the FFN width: column- then
+    row-parallel ``cm_k``/``cm_v``; the receptance ``cm_r`` whole."""
+    whole = "stored" if mesh is None else None
+    xk = _token_shift(x, _w(mesh, p, "mu_ck", whole), last_tok)
+    rr = torch.sigmoid(x @ _w(mesh, p, "cm_r", whole))
+    if mesh is not None and mesh.tp_ok(cfg.d_ff):
+        h = torch.square(F.relu(C.copy_to(xk, mesh.model) @
+                                mesh.take(p, "cm_k", -1)))
+        return rr * C.reduce_from(h @ mesh.take(p, "cm_v", 0), mesh.model)
+    h = torch.square(F.relu(xk @ _w(mesh, p, "cm_k", whole)))
+    return rr * (h @ _w(mesh, p, "cm_v", whole))
 
 
 def rwkv_block(cfg, p, x, *, rules=None, state=None, use_chunked=True,
-               train: bool = False):
+               train: bool = False, mesh=None):
     """One RWKV6 block.  ``state`` is (wkv [B,H,N,N], last1 [B,D], last2
     [B,D]) for decode, or None for train/prefill.  Returns (x, new_state)."""
     wkv_s, last1, last2 = state if state is not None else (None, None, None)
-    h = rms_norm(x, p["norm1"], cfg.norm_eps)
+    whole = "stored" if mesh is None else None
+    h = rms_norm(x, _w(mesh, p, "norm1", whole), cfg.norm_eps)
     a, wkv_s = time_mix(cfg, p, h, rules=rules, state=wkv_s,
-                        last_tok=last1, use_chunked=use_chunked, train=train)
+                        last_tok=last1, use_chunked=use_chunked, train=train,
+                        mesh=mesh)
     new_last1 = h[:, -1]
     x = x + a
-    h2 = rms_norm(x, p["norm2"], cfg.norm_eps)
-    x = x + channel_mix(cfg, p, h2, last_tok=last2)
+    h2 = rms_norm(x, _w(mesh, p, "norm2", whole), cfg.norm_eps)
+    x = x + channel_mix(cfg, p, h2, last_tok=last2, mesh=mesh)
     new_last2 = h2[:, -1]
     return x, (wkv_s, new_last1, new_last2)
 
@@ -217,28 +252,36 @@ def rwkv_init(cfg, gen: torch.Generator) -> Dict[str, Any]:
 
 
 def rwkv_backbone(cfg, params, tokens, rules=None, state=None,
-                  train: bool = False):
+                  train: bool = False, mesh=None):
     """The layer stack.  ``state`` (decode) is the stacked (wkv [L,B,H,N,N],
     last1 [L,B,D], last2 [L,B,D]); None for train/prefill, which start
     from zeros and take the chunked wkv.  Returns (normed hidden [B,T,D],
     new stacked state); with ``train`` the state is None and each layer
-    runs under ``remat`` when ``cfg.remat``."""
-    x = _embed(cfg, params, tokens)
+    runs under ``remat`` when ``cfg.remat``.  On a mesh the residual
+    stream is replicated over ``model`` and the wkv state holds this
+    rank's heads."""
+    ctx = mesh.at(tokens.shape[1], seq=False) if mesh is not None else None
+    whole = "stored" if mesh is None else None
+    x = _embed(cfg, params, tokens, ctx)
     if train:
         def body(bp, h):
-            return rwkv_block(cfg, bp, h, rules=rules, train=True)[0]
+            return rwkv_block(cfg, bp, h, rules=rules, train=True,
+                              mesh=ctx)[0]
 
         body = remat(body, cfg.remat)
-        for bp in unstack(params["blocks"], cfg.n_layers):
+        for bp in unstack(params["blocks"], cfg.n_layers, mesh):
             x = body(bp, x)
-        return rms_norm(x, params["final_norm"], cfg.norm_eps), None
+        return rms_norm(x, _w(ctx, params, "final_norm", whole),
+                        cfg.norm_eps), None
     decode = state is not None
     new = ([], [], [])
     for i in range(cfg.n_layers):
         st = tuple(a[i] for a in state) if decode else None
-        x, st_new = rwkv_block(cfg, layer(params["blocks"], i), x,
-                               rules=rules, state=st, use_chunked=not decode)
+        x, st_new = rwkv_block(cfg, layer(params["blocks"], i, mesh), x,
+                               rules=rules, state=st, use_chunked=not decode,
+                               mesh=ctx)
         for acc, a in zip(new, st_new):
             acc.append(a)
     new_state = tuple(torch.stack(acc) for acc in new)
-    return rms_norm(x, params["final_norm"], cfg.norm_eps), new_state
+    return rms_norm(x, _w(ctx, params, "final_norm", whole),
+                    cfg.norm_eps), new_state

@@ -14,6 +14,11 @@ Caches: ``k_plain``/``v_plain`` [G, per-1, B, S, Hkv, dh] and
 ``k_cross``/``v_cross`` [G, B, n_img, Hkv, dh], not padded.  In training
 every plain layer and every cross layer runs under ``layers.remat`` when
 ``cfg.remat``, at the reference's ``jax.checkpoint`` sites.
+
+On a device mesh (``mesh=``) the layers run as the transformer's
+(sequence-parallel residual stream, tensor-parallel attention and FFN);
+the self-attention caches are sequence-sharded blocks, the cross caches
+keep the prefill's layout (this rank's KV heads, or whole).
 """
 from __future__ import annotations
 
@@ -23,7 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from .config import ModelConfig
-from .layers import _full, attention, dense_init, remat, rms_norm
+from .layers import _full, _w, attention, dense_init, remat, rms_norm
 from .transformer import (_block as tf_block, _dt, _embed, _stack,
                           block_params, layer, tree_map, unstack)
 
@@ -47,61 +52,67 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> Dict[str, Any]:
 
 
 def _cross_block(cfg, bp, x, img_kv, *, rules, msize, cache, pos,
-                 cross_cache=None):
+                 cross_cache=None, mesh=None):
     """Self-attn block + cross-attention to the image embeddings (or, in
     decode, to their cached K/V).  Returns (x, self_kv, cross_kv)."""
     x, self_kv = tf_block(cfg, bp, x, rules=rules, msize=msize, cache=cache,
-                          pos=pos)
-    h = rms_norm(x, bp["norm_x"], cfg.norm_eps)
+                          pos=pos, mesh=mesh)
+    h = rms_norm(x, _w(mesh, bp, "norm_x", None), cfg.norm_eps)
     if cross_cache is not None:
         a, cross_kv = attention(cfg, bp["xattn"], h, rules=rules,
                                 model_size=msize, rope=False,
-                                cache=cross_cache, static_cache=True)
+                                cache=cross_cache, static_cache=True,
+                                mesh=mesh)
     else:
         a, cross_kv = attention(cfg, bp["xattn"], h, rules=rules,
                                 model_size=msize, x_kv=img_kv, rope=False,
-                                causal=False)
+                                causal=False, mesh=mesh)
     return x + a, self_kv, cross_kv
 
 
 def forward(cfg: ModelConfig, params, tokens, img_embed, *, rules=None,
             msize=1, mode="train", cache=None, pos=None,
-            cache_len: Optional[int] = None):
+            cache_len: Optional[int] = None, mesh=None):
     """img_embed: [B, n_img, D] stub patch embeddings (unused in decode,
     which reads the cross cache).  Returns (normed hidden, cache or
     None)."""
     per = cfg.cross_every
     n_super = cfg.n_layers // per
     bsz, t = tokens.shape
-    x = _embed(cfg, params, tokens)
+    ctx = mesh.at(t) if mesh is not None else None
+    whole = None if mesh is not None else "stored"
+    x = _embed(cfg, params, tokens, ctx)
     decode = mode == "decode"
     img = None if decode else img_embed.to(x.dtype)
     if mode == "train":
         def plain(bp, h):
-            return tf_block(cfg, bp, h, rules=rules, msize=msize)[0]
+            return tf_block(cfg, bp, h, rules=rules, msize=msize,
+                            mesh=ctx)[0]
 
         def cross(bp, h):
             return _cross_block(cfg, bp, h, img, rules=rules, msize=msize,
-                                cache=None, pos=None)[0]
+                                cache=None, pos=None, mesh=ctx)[0]
 
         plain, cross = remat(plain, cfg.remat), remat(cross, cfg.remat)
-        crosses = unstack(params["cross"], n_super)
-        for g, gp in enumerate(unstack(params["plain"], n_super)):
-            for bp in unstack(gp, per - 1):
+        crosses = unstack(params["cross"], n_super, mesh)
+        for g, gp in enumerate(unstack(params["plain"], n_super, mesh)):
+            for bp in unstack(gp, per - 1, mesh):
                 x = plain(bp, x)
             x = cross(crosses[g], x)
-        return rms_norm(x, params["final_norm"], cfg.norm_eps), None
+        return rms_norm(x, _w(ctx, params, "final_norm", whole),
+                        cfg.norm_eps), None
     names = ("k_plain", "v_plain", "k_cself", "v_cself", "k_cross",
              "v_cross")
     out = {k: [] for k in names}
     for g in range(n_super):
-        gp = layer(params["plain"], g)
+        gp = layer(params["plain"], g, mesh)
         ks, vs = [], []
         for j in range(per - 1):
             c = ((cache["k_plain"][g, j], cache["v_plain"][g, j])
                  if decode else None)
-            x, kv = tf_block(cfg, layer(gp, j), x, rules=rules, msize=msize,
-                             cache=c, pos=pos if decode else None)
+            x, kv = tf_block(cfg, layer(gp, j, mesh), x, rules=rules,
+                             msize=msize, cache=c,
+                             pos=pos if decode else None, mesh=ctx)
             ks.append(kv[0])
             vs.append(kv[1])
         out["k_plain"].append(torch.stack(ks))
@@ -109,16 +120,22 @@ def forward(cfg: ModelConfig, params, tokens, img_embed, *, rules=None,
         c = (cache["k_cself"][g], cache["v_cself"][g]) if decode else None
         cx = (cache["k_cross"][g], cache["v_cross"][g]) if decode else None
         x, self_kv, cross_kv = _cross_block(
-            cfg, layer(params["cross"], g), x, img, rules=rules, msize=msize,
-            cache=c, pos=pos if decode else None, cross_cache=cx)
+            cfg, layer(params["cross"], g, mesh), x, img, rules=rules,
+            msize=msize, cache=c, pos=pos if decode else None,
+            cross_cache=cx, mesh=ctx)
         out["k_cself"].append(self_kv[0])
         out["v_cself"].append(self_kv[1])
         out["k_cross"].append(cross_kv[0])
         out["v_cross"].append(cross_kv[1])
 
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    x = rms_norm(x, _w(ctx, params, "final_norm", whole), cfg.norm_eps)
     new_cache = {k: torch.stack(v) for k, v in out.items()}
-    if mode == "prefill" and cache_len and cache_len > t:
+    if mode == "prefill" and mesh is not None:
+        heads = mesh.heads_tp(cfg)
+        for k in ("k_plain", "v_plain", "k_cself", "v_cself"):
+            new_cache[k] = mesh.decode_cache(new_cache[k], cache_len or t,
+                                             heads)
+    elif mode == "prefill" and cache_len and cache_len > t:
         pad6 = (0, 0, 0, 0, 0, cache_len - t)       # the S axis
         for k in ("k_plain", "v_plain", "k_cself", "v_cself"):
             new_cache[k] = F.pad(new_cache[k], pad6)

@@ -8,6 +8,11 @@ leaves are taken in the reference's ``jax.tree_util`` order (dict keys
 sorted), so a state carried across from the reference lines up leaf for
 leaf.  ``AdamWState.step`` is a 0-d int32 tensor on the parameters' device:
 the schedule and the bias correction read no host value.
+
+On a device mesh the moments are blocks like the parameters (the update
+is elementwise), and ``global_norm(specs=, mesh=)`` is the norm of the
+global gradient: each leaf's sum of squares is summed over the axes its
+spec shards it on, so a replicated leaf counts once.
 """
 from __future__ import annotations
 
@@ -81,21 +86,48 @@ def init_state(cfg: AdamWConfig, params) -> AdamWState:
                       m=zeros, v=tree_map(torch.clone, zeros))
 
 
-def global_norm(tree) -> torch.Tensor:
+def spec_leaves(specs) -> List[Any]:
+    """The leaves of a spec tree (nested dicts of spec tuples) in
+    ``tree_leaves`` order: each spec tuple is one leaf."""
+    if isinstance(specs, dict):
+        return [x for k in sorted(specs) for x in spec_leaves(specs[k])]
+    return [tuple(specs)]
+
+
+def global_norm(tree, specs=None, mesh=None) -> torch.Tensor:
     """sqrt of the sum of every leaf's float32 sum of squares, the leaves'
-    sums added in tree order."""
+    sums added in tree order.  On a mesh (``specs``: the leaves' specs)
+    the leaves are blocks: the sums of the leaves sharded over the same
+    axes are added, summed over those axes (``Comm.psum``, the same bits
+    on every rank), and the groups added in a fixed order."""
     sq = [torch.sum(torch.square(g.float())) for g in tree_leaves(tree)]
-    total = sq[0]
-    for s in sq[1:]:
-        total = total + s
+    if mesh is None:
+        total = sq[0]
+        for s in sq[1:]:
+            total = total + s
+        return torch.sqrt(total)
+    from repro_torch.launch.mesh import mesh_comms
+    mc = mesh_comms(mesh)
+    groups = {}
+    for s, spec in zip(sq, spec_leaves(specs)):
+        used = {a for e in spec if e is not None
+                for a in ((e,) if isinstance(e, str) else e)}
+        axes = tuple(a for a in mc.layout.axes if a in used)
+        groups[axes] = groups[axes] + s if axes in groups else s
+    total = None
+    for axes in sorted(groups):
+        comm = mc.comm(axes)
+        part = groups[axes] if comm is None else comm.psum(groups[axes])
+        total = part if total is None else total + part
     return torch.sqrt(total)
 
 
 def apply_updates(cfg: AdamWConfig, params, grads, state: AdamWState,
-                  lr_scale=1.0):
+                  lr_scale=1.0, specs=None, mesh=None):
     """Returns (new_params, new_state, metrics); nothing is updated in
-    place."""
-    gnorm = global_norm(grads)
+    place.  On a mesh the trees are this rank's blocks and the clip is
+    driven by the global gradient norm (``global_norm(specs=, mesh=)``)."""
+    gnorm = global_norm(grads, specs, mesh)
     clip = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
                        max=1.0)
     step = state.step + 1

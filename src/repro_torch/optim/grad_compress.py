@@ -19,6 +19,15 @@ The reference's ``axis=`` (a ``lax.pmean`` over a mesh axis) is ``comm=``
 here: a ``core.comm.Comm`` whose ``psum`` is divided by the group size;
 ``comm=None`` is the reference's ``axis=None`` (one device).  The initial
 Q factors come from the port's own seeded ``torch.Generator``.
+
+On a device mesh the reference compresses the global, already-reduced
+gradient (``axis=None`` under its sharded step); the port's gradient
+blocks arrive reduced over ``data`` by the backward (reduce-scatter for
+FSDP leaves, psum for replicated ones), so ``compress_and_reduce(mesh=,
+specs=)`` gathers each compressible leaf's gradient and error feedback,
+runs the power iteration on the global matrix (the same on every rank)
+and keeps this rank's blocks of the result and of the error; the Q
+factors are replicated.
 """
 from __future__ import annotations
 
@@ -73,9 +82,13 @@ def init_state(cfg: PowerSGDConfig, params,
 
 
 def compress_and_reduce(cfg: PowerSGDConfig, grads, state: PowerSGDState,
-                        comm=None):
+                        comm=None, mesh=None, specs=None):
     """Compress and average grads over ``comm``'s ranks (None = one
-    device).  Returns (grads_hat, new_state)."""
+    device).  Returns (grads_hat, new_state).  On a mesh (``specs``: the
+    leaves' specs) the gradients are this rank's blocks of the reduced
+    global gradient."""
+    if mesh is not None:
+        return _compress_sharded(cfg, grads, state, mesh, specs)
 
     def reduce_mean(x):
         return x if comm is None else comm.psum(x) / comm.p
@@ -83,19 +96,43 @@ def compress_and_reduce(cfg: PowerSGDConfig, grads, state: PowerSGDState,
     def one(g, q, e):
         if q is None:
             return reduce_mean(g), None, None
-        g32 = g.float() + e
-        gm = g32.reshape(g32.shape[0], -1)
-        p = reduce_mean(gm @ q)                       # [m, r]
-        p, _ = torch.linalg.qr(p)
-        q_new = reduce_mean(gm.T @ p)                 # [n, r]
-        g_hat = (p @ q_new.T).reshape(g32.shape)
-        return g_hat.to(g.dtype), q_new, g32 - g_hat
+        return compress_leaf(g, q, e, reduce_mean)
 
     outs = [one(g, q, e) for g, q, e in zip(tree_leaves(grads), state.q,
                                             state.err)]
     g_hat = tree_unflatten(grads, [o[0] for o in outs])
     return g_hat, PowerSGDState(q=[o[1] for o in outs],
                                 err=[o[2] for o in outs])
+
+
+def _compress_sharded(cfg, grads, state, mesh, specs):
+    from repro_torch.parallel.sharding import assemble, local_block
+    from .adamw import spec_leaves
+    outs = []
+    for g, q, e, spec in zip(tree_leaves(grads), state.q, state.err,
+                             spec_leaves(specs)):
+        if q is None:
+            outs.append((g, None, None))
+            continue
+        gh, qn, en = compress_leaf(assemble(g, spec, mesh), q,
+                                   assemble(e, spec, mesh))
+        outs.append((local_block(gh, spec, mesh), qn,
+                     local_block(en, spec, mesh)))
+    g_hat = tree_unflatten(grads, [o[0] for o in outs])
+    return g_hat, PowerSGDState(q=[o[1] for o in outs],
+                                err=[o[2] for o in outs])
+
+
+def compress_leaf(g, q, e, reduce_mean=lambda x: x):
+    """One leaf's power-iteration step with error feedback: (g_hat in g's
+    dtype, the new Q, the new error feedback)."""
+    g32 = g.float() + e
+    gm = g32.reshape(g32.shape[0], -1)
+    p = reduce_mean(gm @ q)                       # [m, r]
+    p, _ = torch.linalg.qr(p)
+    q_new = reduce_mean(gm.T @ p)                 # [n, r]
+    g_hat = (p @ q_new.T).reshape(g32.shape)
+    return g_hat.to(g.dtype), q_new, g32 - g_hat
 
 
 def compression_ratio(cfg: PowerSGDConfig, params) -> float:

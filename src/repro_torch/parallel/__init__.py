@@ -1,1 +1,3 @@
-"""Parallelism of the port: the sharding rules (``sharding``)."""
+"""Parallelism of the port: the sharding rules and the sharded model
+run's context (``sharding``) and the collectives autograd can
+differentiate (``collectives``)."""

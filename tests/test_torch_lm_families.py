@@ -231,10 +231,19 @@ def test_params_from_numpy_checks_shapes(arch, kw):
 
 
 def test_sharding_rules_raise_for_every_family():
+    """Without a device mesh ``msize`` > 1 raises ``ValueError`` for every
+    family, and rules at ``msize`` 1 change no value (the reference's
+    constraints are no-ops outside a mesh).  The mesh runs are in
+    ``test_torch_lm_mesh.py``."""
+    from repro_torch.parallel.sharding import Rules
     for arch in ("rwkv6_7b", "zamba2_7b", "qwen3_moe_30b_a3b"):
         cfg = _reduced(arch)
         p = api.init_params(cfg, 0, "cpu")
-        with pytest.raises(NotImplementedError, match="sharding"):
-            api.prefill(cfg, p, {"tokens": torch.zeros(1, 4,
-                                                       dtype=torch.long)},
-                        rules=object())
+        batch = {"tokens": torch.arange(4, dtype=torch.long)[None]}
+        with pytest.raises(ValueError, match="mesh"):
+            api.prefill(cfg, p, batch, rules=Rules(), msize=2)
+        with pytest.raises(ValueError, match="mesh"):
+            api.train_loss(cfg, p, batch, rules=Rules(), msize=2)
+        a, _ = api.prefill(cfg, p, batch, rules=Rules())
+        b, _ = api.prefill(cfg, p, batch)
+        assert torch.equal(a, b)

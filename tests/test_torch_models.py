@@ -207,9 +207,43 @@ def test_mlp_matches_reference(act):
 
 
 def test_sharding_rules_not_ported():
-    q = torch.zeros(1, 4, 2, 8)
-    with pytest.raises(NotImplementedError, match="sharding"):
-        layers.flash_attention(q, q, q, causal=True, model_size=2)
+    """Without a device mesh the rules change only the flash blocking: the
+    query blocks re-cut for context parallelism (KV heads that do not
+    shard), the reference's values with the same rules and
+    ``model_size``; ``msize`` > 1 without a mesh raises ``ValueError``.
+    (The mesh runs are in ``test_torch_lm_mesh.py``.)"""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import AxisType
+    from repro.models import layers as rlayers
+    from repro.parallel.sharding import Rules as RRules
+    from repro_torch.parallel.sharding import Rules
+    # the reference's constraints need a mesh in context on jax 0.9 (its
+    # fallback catches ValueError and TypeError, not RuntimeError): one
+    # device, where they change no value
+    one = jax.make_mesh((1, 1), ("data", "model"),
+                        axis_types=(AxisType.Auto,) * 2)
+    assert layers.flash_blocks(12, 12, 4, 4) == (3, 4, 3, 4)
+    assert layers.flash_blocks(12, 12, 4, 4, cp=2) == (2, 6, 3, 4)
+    assert layers.flash_blocks(9, 9, 4, 4, cp=2) == (1, 9, 1, 9)
+    rng = np.random.default_rng(3)
+    q, k, v = (rng.standard_normal((2, 12, h, 8)).astype(np.float32)
+               for h in (4, 2, 2))
+    for attn_tp in (False, True):
+        kw = dict(causal=True, block_q=4, block_kv=4, model_size=2)
+        got = layers.flash_attention(*map(torch.from_numpy, (q, k, v)),
+                                     rules=Rules(attn_tp=attn_tp), **kw)
+        with jax.set_mesh(one):
+            want = rlayers.flash_attention(*map(jnp.asarray, (q, k, v)),
+                                           rules=RRules(attn_tp=attn_tp),
+                                           **kw)
+        assert np.abs(got.numpy() - np.asarray(want)).max() < 1e-5
+    cfg = cbase.get_config("qwen3_0_6b").reduced(param_dtype="float32",
+                                                 act_dtype="float32")
+    p = api.init_params(cfg, 0, "cpu")
+    with pytest.raises(ValueError, match="mesh"):
+        api.prefill(cfg, p, {"tokens": torch.zeros(1, 4, dtype=torch.long)},
+                    msize=2)
 
 
 # ---------------------------------------------------------------------------

@@ -170,10 +170,33 @@ def test_shard_shape_equals_named_sharding(layout):
 
 
 def test_constrain_without_a_mesh_is_the_identity():
+    """``constrain`` without a mesh returns its input; on a one-rank mesh
+    every layout is the whole tensor, so it is the identity too (and so
+    are ``local_block`` and ``assemble``).  The layout changes on 2 and 4
+    ranks are in ``test_torch_collectives.py``."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_test_mesh
     x = torch.randn(4, 8)
     assert S.constrain(x, S.Rules().act_full()) is x
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        S.constrain(x, S.Rules().act_full(), mesh=object())
+    assert S.local_block(x, ("data", "model"), None) is x
+    if dist.is_initialized():
+        pytest.skip("a process group is already initialised here")
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("gloo", init_method=f"file://{tmp}/rdv",
+                                rank=0, world_size=1)
+        try:
+            mesh = make_test_mesh(1, 1)
+            for spec in (("data", "model"), ("model", None), (None, None)):
+                y = S.constrain(x, spec, mesh)
+                assert torch.equal(y, x)
+                assert torch.equal(S.local_block(x, spec, mesh), x)
+                assert torch.equal(S.assemble(x, spec, mesh), x)
+            with pytest.raises(ValueError, match="mesh"):
+                S.constrain(x, (("model", "data"), None), mesh,
+                            src=(None, None))
+        finally:
+            dist.destroy_process_group()
 
 
 @pytest.mark.parametrize("dim,side", [(2, 32), (3, 8)])

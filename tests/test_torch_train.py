@@ -270,11 +270,25 @@ def test_cli_reduced_on_cpu_runs(capsys):
 
 
 def test_mesh_and_rules_raise():
+    """A mesh whose axes are not ``("data", "model")`` raises
+    ``ValueError``; rules without a mesh train as one device does.  (The
+    mesh runs are in ``test_torch_train_mesh.py``.)"""
+    from repro_torch.parallel.sharding import Rules
+
+    class _Mesh:                            # a 1-D DeviceMesh stand-in
+        mesh_dim_names = ("blk",)
+
     cfg = _cfg()
-    with pytest.raises(NotImplementedError):
-        ttrain.build_train_step(cfg, adamw.AdamWConfig(), rules=object())
-    with pytest.raises(NotImplementedError):
-        ttrain.train(cfg, steps=1, mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="mesh"):
+        ttrain.build_train_step(cfg, adamw.AdamWConfig(), mesh=_Mesh())
+    with pytest.raises(ValueError, match="mesh"):
+        ttrain.train(cfg, steps=1, mesh=_Mesh(), rules=Rules(),
+                     device="cpu")
+    a = ttrain.train(cfg, steps=2, global_batch=2, seq_len=8, device="cpu",
+                     log_every=100)
+    b = ttrain.train(cfg, steps=2, global_batch=2, seq_len=8, device="cpu",
+                     rules=Rules(), log_every=100)
+    assert a["loss"] == b["loss"]
 
 
 def test_cli_without_card_raises():
