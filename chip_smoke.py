@@ -5353,6 +5353,11 @@ LMDRY_CACHE = (8, 128, 256)      # [lm]'s requests, prompt and max_len
 # one config of each other family (MoE, RWKV, hybrid, VLM, audio)
 LMDRY_FAMILIES = ("qwen3-moe-30b-a3b", "rwkv6-7b", "zamba2-7b",
                   "llama-3.2-vision-11b", "whisper-tiny")
+# rank 0's sharded program walked (arch, shape, multi-pod), at 2 layers
+LMDRY_RANK_CELLS = (("qwen3-0.6b", "train_4k", False),
+                    ("qwen3-0.6b", "train_4k", True),
+                    ("qwen3-moe-30b-a3b", "decode_32k", False))
+LMDRY_RANK_LAYERS = 2
 
 
 def _flat_sig(tree, path=""):
@@ -5401,7 +5406,9 @@ def lmdry_phase(torch, lm: dict, trained: dict, device: str = "cuda",
     other family (``LMDRY_FAMILIES``),
     long_500k for RWKV6 and Zamba2, their prefill cut to
     ``LMDRY_RECURRENT_PREFILL`` tokens): per-device flops, matmul flops,
-    bytes, argument bytes and walk seconds, with no launch and no memory
+    bytes, argument bytes and walk seconds; rank 0's sharded program of
+    ``LMDRY_RANK_CELLS`` at 2 layers walked over ``DryComm``s: its
+    collectives by kind, flops and memory; with no launch and no memory
     allocated on the card.  Then the card holds the abstractions: the
     abstract qwen3-0.6b tree equals ``init_params``' on the card leaf by
     leaf and in bytes; the abstract cache equals a real prefill's (8 x
@@ -5467,7 +5474,7 @@ def lmdry_phase(torch, lm: dict, trained: dict, device: str = "cuda",
     for arch, shape, multi_pod, seq in cells:
         r = dry.dry_cell(arch, shape, layout=layouts["2pod" if multi_pod
                                                       else "1pod"],
-                         seq_len=seq, walks=walks)
+                         seq_len=seq, walks=walks, rank=None)
         cut = f", cut {r['cut']}" if r["cut"] else ""
         parts = {k: v for k, v in r["argument_bytes"].items()
                  if k != "total"}
@@ -5485,6 +5492,31 @@ def lmdry_phase(torch, lm: dict, trained: dict, device: str = "cuda",
             "matmul_flops_per_device", "bytes_per_device", "argument_bytes",
             "dispatches", "walk_s")})
     t_cells = time.perf_counter() - t0
+
+    # one rank's sharded program of three production cells
+    t0 = time.perf_counter()
+    rank_rows = []
+    for arch, shape, multi_pod in LMDRY_RANK_CELLS:
+        r = dry.dry_cell(arch, shape, layout=layouts["2pod" if multi_pod
+                                                      else "1pod"],
+                         n_layers=LMDRY_RANK_LAYERS, rank=0)
+        require("rank_skipped" not in r, f"[lmdry] rank walk of {arch} x "
+                f"{shape}: {r.get('rank_skipped')}")
+        log(f"[lmdry] rank 0 of {arch} x {shape} x "
+            f"{'2pod' if multi_pod else '1pod'} ({LMDRY_RANK_LAYERS} "
+            f"layers, coords {r['rank_coords']}) walked on meta over "
+            f"DryComms: collectives (output bytes) {r['collectives']}, "
+            f"received {r['recv_bytes_by_kind']}, rank flops "
+            f"{r['rank_flops']:.4e}, matmul flops "
+            f"{r['rank_matmul_flops']:.4e} (global / devices "
+            f"{r['matmul_flops_per_device']:.4e}), memory {r['memory']}, "
+            f"{r['rank_dispatches']} dispatches, walk "
+            f"{r['rank_walk_s']:.2f} s")
+        rank_rows.append({k: r[k] for k in (
+            "arch", "shape", "mesh", "rank_coords", "collectives",
+            "recv_bytes_by_kind", "rank_flops", "rank_matmul_flops",
+            "matmul_flops_per_device", "memory", "rank_walk_s")})
+    t_rank = time.perf_counter() - t0
     launches = ops.launch_counts()
     require(not any(launches.values()),
             f"[lmdry] the walks launched kernels: {launches}")
@@ -5492,8 +5524,9 @@ def lmdry_phase(torch, lm: dict, trained: dict, device: str = "cuda",
     require(mem1 == mem0, f"[lmdry] the walks allocated {mem1 - mem0} "
                           f"bytes on the card")
     log(f"[lmdry] specs of 10 configs x 2 layouts {t_specs:.1f} s, "
-        f"{len(cells)} dry cells {t_cells:.1f} s: no launch, no allocation "
-        f"on the card ({mem1} bytes before and after)")
+        f"{len(cells)} dry cells {t_cells:.1f} s, {len(rank_rows)} rank "
+        f"walks {t_rank:.1f} s: no launch, no allocation on the card "
+        f"({mem1} bytes before and after)")
 
     # the abstract tree is the real tree
     gen = torch.Generator(device=device).manual_seed(LM_SEED)
@@ -5594,7 +5627,8 @@ def lmdry_phase(torch, lm: dict, trained: dict, device: str = "cuda",
     launches = ops.launch_counts()
     t_phase = time.perf_counter() - t_phase
     log(f"[lmdry] phase took {t_phase:.1f} s; launches {launches}")
-    return dict(specs=specs, cells=rows, walk_diff=list(diff),
+    return dict(specs=specs, cells=rows, rank_cells=rank_rows,
+                walk_diff=list(diff),
                 walk_matmul=[mm_card, mm_meta], walk_totals=tot, work=work,
                 launches=launches, phase_s=t_phase)
 
@@ -5839,6 +5873,68 @@ def _lmmesh_rank_work(rank: int, oracle, on_card: bool, reduced: bool
     return out
 
 
+def _lmmesh_walks(torch, dense, moe, b: int, s: int, steps: int,
+                  tb: int, ts: int) -> dict:
+    """Rank 0's program of each step ``[lmmesh]`` measures, walked on
+    ``meta`` over ``launch.mesh.dry_mesh_comms`` (``DryComm``s) at the
+    phase's configs and rules: its received bytes by collective kind
+    (``Comm``'s measure), its output bytes and matrix-product flops, per
+    step -- the prefill (``cache_len`` s + steps) and one decode step of
+    each served layout, one FSDP train step with PowerSGD each way."""
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.launch import dryrun as dry
+    from repro_torch.launch.mesh import MeshLayout, dry_mesh_comms, \
+        sum_by_kind
+    from repro_torch.launch.train import (OPT_CFG, PSGD_CFG,
+                                          build_train_step, state_local)
+    from repro_torch.models import api
+    from repro_torch.parallel.sharding import Rules
+    from repro_torch.perf import op_cost
+    lay = MeshLayout((2, 2), ("data", "model"))
+    out: dict = {}
+
+    def meta(*shape):
+        return torch.empty(shape, dtype=torch.int64, device="meta")
+
+    def counted(mc, fn):
+        mc.reset_counts()
+        got = []
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            per_op = op_cost.count_ops(lambda: got.append(fn()))
+        return got[0], dict(recv=sum_by_kind(mc.bytes_by_kind()),
+                            out=sum_by_kind(mc.bytes_by_kind(out=True)),
+                            matmul=op_cost.matmul_flops(per_op),
+                            walk_s=time.perf_counter() - t0)
+
+    for key, cfg, rules in (
+            ("serve/attn_tp=True", dense, Rules(fsdp=False, attn_tp=True)),
+            ("serve/attn_tp=False", dense, Rules(fsdp=False,
+                                                 attn_tp=False)),
+            ("serve/moe", moe, Rules(fsdp=False))):
+        mc = dry_mesh_comms(lay, 0)
+        args = dry.rank_arguments(cfg, ShapeCfg("prefill", s, b, "prefill"),
+                                  rules, mc, api.abstract_params(cfg),
+                                  {"tokens": meta(b, s)})
+        params = args["params"]
+        (_, cache), pre = counted(mc, lambda: api.prefill(
+            cfg, params, args["batch"], rules, mesh=mc,
+            cache_len=s + steps))
+        _, dec = counted(mc, lambda: api.decode_step(
+            cfg, params, {"tokens": meta(b // 2, 1)}, cache, meta(), rules,
+            mesh=mc))
+        out[key] = dict(prefill=pre, decode=dec)
+    for attn_tp in (True, False):
+        rules = Rules(attn_tp=attn_tp)
+        mc = dry_mesh_comms(lay, 0)
+        state = state_local(dense, dry.abstract_train_state(
+            dense, OPT_CFG, PSGD_CFG), rules, mc)
+        step_fn = build_train_step(dense, OPT_CFG, rules, mc, 100, PSGD_CFG)
+        _, out[f"train/attn_tp={attn_tp}"] = counted(mc, lambda: step_fn(
+            state, {"tokens": meta(tb // 2, ts + 1)}))
+    return out
+
+
 def lmmesh_phase(torch, device: str = "cuda", reduced: bool = False,
                  card: str = "") -> dict:
     """The LMs under ``parallel/sharding.py``'s rules over 4 spawned gloo
@@ -5858,8 +5954,11 @@ def lmmesh_phase(torch, device: str = "cuda", reduced: bool = False,
     leaf's max |p|, the MoE's dropped choices equal per data shard and
     layer.  Logs per-step wall times, each rank's received bytes by
     collective kind for one prefill, one decode step and one train step,
-    and each rank's peak memory.  ``reduced`` rehearses it on the CPU at
-    the reduced configs."""
+    and each rank's peak memory.  Then the parent walks rank 0's program
+    of each of those steps on ``meta`` over ``DryComm``s
+    (``_lmmesh_walks``: the LM dry run's per-rank walk) and requires its
+    received bytes to equal rank 0's measured ones, kind by kind.
+    ``reduced`` rehearses it on the CPU at the reduced configs."""
     from repro_torch.models import api
     from repro_torch.optim.adamw import tree_leaves
 
@@ -5900,13 +5999,7 @@ def lmmesh_phase(torch, device: str = "cuda", reduced: bool = False,
         for k, v in r["launches"].items():
             launches[k] = launches.get(k, 0) + v
 
-    def kinds(per_comm):
-        out: dict = {}
-        for comm in per_comm.values():
-            for k, v in comm.items():
-                out[k] = out.get(k, 0) + v
-        return out
-
+    from repro_torch.launch.mesh import sum_by_kind as kinds
     what = {"serve/attn_tp=True": f"{LMMESH_DENSE[0]} heads over model",
             "serve/attn_tp=False": f"{LMMESH_DENSE[0]} context parallel",
             "serve/moe": f"{LMMESH_MOE[0]} (64 experts a model rank)"}
@@ -5939,6 +6032,24 @@ def lmmesh_phase(torch, device: str = "cuda", reduced: bool = False,
             f"per layer call {got}, oracle {want_drops[d]}")
         require(got == want_drops[d], f"[lmmesh] MoE rank {rank}: dropped "
                 f"choices {got} != the oracle's {want_drops[d]}")
+    t0 = time.perf_counter()
+    tb, ts, _ = LMMESH_TRAIN if not reduced else (4, 32, 2)
+    walks = _lmmesh_walks(torch, dense, moe, b, s, steps, tb, ts)
+    t_walks = time.perf_counter() - t0
+    measured = {f"{key}/{part}": kinds(ranks[0][key][f"bytes_{part}"])
+                for key in what for part in ("prefill", "decode")}
+    measured.update({key: kinds(ranks[0][key]["bytes"]) for key in (
+        "train/attn_tp=True", "train/attn_tp=False")})
+    for name, got in measured.items():
+        w = walks[name.rsplit("/", 1)[0]][name.rsplit("/", 1)[1]] \
+            if name.startswith("serve") else walks[name]
+        log(f"[lmmesh] meta walk of rank 0's {name} over DryComms: "
+            f"received {w['recv']} (rank 0 measured {got}), output "
+            f"bytes {w['out']}, matmul flops {w['matmul']:.6e}, walk "
+            f"{w['walk_s']:.2f} s")
+        require(w["recv"] == got, f"[lmmesh] {name}: the meta walk's bytes "
+                f"{w['recv']} != rank 0's measured {got}")
+    log(f"[lmmesh] rank 0's walks on meta took {t_walks:.1f} s")
     for attn_tp in (True, False):
         key = f"train/attn_tp={attn_tp}"
         for rank, r in enumerate(ranks):
@@ -5972,7 +6083,7 @@ def lmmesh_phase(torch, device: str = "cuda", reduced: bool = False,
                         if isinstance(v, dict) else v
                         for k, v in r.items()} for r in ranks],
                 oracle_train_ms=train_ms, phase_s=t_phase,
-                launches=launches)
+                walks=walks, walks_s=t_walks, launches=launches)
 
 
 def _leaves(tree):

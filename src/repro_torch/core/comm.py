@@ -29,7 +29,17 @@ them by collective kind under the reference's HLO names (``all-gather``,
 ``collective-permute``, ``all-to-all``, ``reduce-scatter``, and
 ``all-reduce`` for ``psum`` and ``pmax``),
 which ``perf.comm_cost`` reads; ``broadcast`` and ``scatter`` count under
-the kind their caller names.
+the kind their caller names.  ``out_by_kind`` counts, by the same kinds,
+the bytes of each collective's OUTPUT on this rank, the reference's
+``hlo_cost.collective_bytes`` measure: an all-gather's gathered tensor,
+an all-reduce's reduced tensor (not the gathered partials), a
+reduce-scatter's block, an all-to-all's buffer, a permute's landed
+tensor, a broadcast's tensor and a scatter's part.
+
+``DryComm`` is a ``Comm`` with no process group: rank ``r`` of ``p``,
+whose collectives return uninitialised tensors of the landed shapes
+(``meta`` ones in a dry run) and count both measures exactly as ``Comm``
+does, so one rank's program can be walked without the others.
 
 ``mesh_comm`` lays the world out as the reference's 2D ``(blk, nv)`` mesh
 (``make_dist_matvec(..., nv_axis=)``) and gives a rank its ``Comm`` over
@@ -78,18 +88,36 @@ class Comm:
         # point-to-point ops name their peer by its rank in the world
         self._world_rank = (lambda r: r) if self.group is dist.group.WORLD \
             else (lambda r: dist.get_global_rank(self.group, r))
-        self.recv_bytes = 0
-        self.recv_by_kind: Dict[str, int] = {}
-        self.staged_bytes = 0
+        self.reset_counts()
 
     def reset_counts(self) -> None:
         self.recv_bytes = 0
-        self.recv_by_kind = {}
+        self.recv_by_kind: Dict[str, int] = {}
+        self.out_by_kind: Dict[str, int] = {}
         self.staged_bytes = 0
 
     def _count(self, kind: str, nbytes: int) -> None:
         self.recv_bytes += nbytes
         self.recv_by_kind[kind] = self.recv_by_kind.get(kind, 0) + nbytes
+
+    def _count_out(self, kind: str, nbytes: int) -> None:
+        self.out_by_kind[kind] = self.out_by_kind.get(kind, 0) + nbytes
+
+    def _gathered(self, x: torch.Tensor, kind: str) -> None:
+        """The counts of a tiled gather of ``x``; under ``all-reduce``
+        (``psum``, ``pmax``: one partial per rank) the output is the
+        reduced tensor, one partial's size."""
+        n = x.numel() * x.element_size()
+        self._count(kind, (self.p - 1) * n)
+        self._count_out(kind, n if kind == "all-reduce" else self.p * n)
+
+    def _exchanged(self, buf: torch.Tensor, kind: str) -> None:
+        """The counts of an all-to-all of ``[p, ...]`` rows; under
+        ``reduce-scatter`` the output is one block."""
+        row = buf[0].numel() * buf.element_size()
+        self._count(kind, (self.p - 1) * row)
+        self._count_out(kind, row if kind == "reduce-scatter"
+                        else self.p * row)
 
     # -- transport -------------------------------------------------------
 
@@ -132,7 +160,7 @@ class Comm:
             warnings.simplefilter("ignore", FutureWarning)
             work = dist.all_gather_into_tensor(out, src, group=self.group,
                                                async_op=True)
-        self._count(kind, (self.p - 1) * x.numel() * x.element_size())
+        self._gathered(x, kind)
         return Pending([work], out, self._finisher(x), src)
 
     def all_gather(self, x: torch.Tensor, kind: str = "all-gather"
@@ -158,9 +186,15 @@ class Comm:
         if src:
             ops.append(dist.P2POp(dist.irecv, out, self._world_rank(src[0]),
                                   group=self.group, tag=tag))
-            self._count("collective-permute", x.numel() * x.element_size())
+        self._permuted(x, bool(src))
         works = dist.batch_isend_irecv(ops) if ops else []
         return Pending(works, out, self._finisher(x), sent)
+
+    def _permuted(self, x: torch.Tensor, received: bool) -> None:
+        n = x.numel() * x.element_size()
+        if received:
+            self._count("collective-permute", n)
+        self._count_out("collective-permute", n)
 
     def ppermute(self, x: torch.Tensor, perm: Sequence[Tuple[int, int]],
                  tag: int = 0) -> torch.Tensor:
@@ -178,7 +212,7 @@ class Comm:
         out = self._empty_wire(tuple(buf.shape), buf)
         work = dist.all_to_all_single(out, src, group=self.group,
                                       async_op=True)
-        self._count(kind, (self.p - 1) * buf[0].numel() * buf.element_size())
+        self._exchanged(buf, kind)
         return Pending([work], out, self._finisher(buf), src)
 
     def all_to_all(self, buf: torch.Tensor, kind: str = "all-to-all"
@@ -236,9 +270,15 @@ class Comm:
         bytes count under ``kind`` on the ranks that received them."""
         wire = self._wire(t)
         dist.broadcast(wire, self._world_rank(src), group=self.group)
-        if self.rank != src:
-            self._count(kind, t.numel() * t.element_size())
+        self._broadcast_counts(t, src, kind)
         return self._finisher(t)(wire)
+
+    def _broadcast_counts(self, t: torch.Tensor, src: int, kind: str
+                          ) -> None:
+        n = t.numel() * t.element_size()
+        if self.rank != src:
+            self._count(kind, n)
+        self._count_out(kind, n)
 
     def scatter(self, t: Optional[torch.Tensor], shape: Tuple[int, ...],
                 like: torch.Tensor, src: int = 0, kind: str = "scatter"
@@ -250,17 +290,76 @@ class Comm:
         out = self._empty_wire(tuple(shape), like)
         parts = None
         if self.rank == src:
-            if tuple(t.shape) != (self.p, *shape):
-                raise ValueError(f"scatter of {tuple(t.shape)}, expected "
-                                 f"{(self.p, *shape)}")
+            self._check_scatter(t, shape)
             parts = list(self._wire(t.to(like.dtype)).unbind(0))
         dist.scatter(out, parts, src=self._world_rank(src), group=self.group)
-        if self.rank != src:
-            self._count(kind, out.numel() * out.element_size())
+        self._broadcast_counts(out, src, kind)
         return self._finisher(like)(out)
+
+    def _check_scatter(self, t: torch.Tensor, shape: Tuple[int, ...]
+                       ) -> None:
+        if tuple(t.shape) != (self.p, *shape):
+            raise ValueError(f"scatter of {tuple(t.shape)}, expected "
+                             f"{(self.p, *shape)}")
 
     def barrier(self) -> None:
         dist.barrier(group=self.group)
+
+
+class DryComm(Comm):
+    """A ``Comm`` with no process group: rank ``rank`` of ``p``.  Every
+    collective returns an uninitialised tensor of the landed shape on the
+    payload's device (``meta`` in a dry run) and counts ``recv_by_kind``
+    and ``out_by_kind`` under the same kinds and rules as ``Comm``;
+    ``psum``, ``pmax`` and ``reduce_scatter`` run ``Comm``'s own code over
+    these.  Nothing is sent, so one rank's program can be walked alone."""
+
+    def __init__(self, rank: int, p: int):
+        if not 0 <= rank < p:
+            raise ValueError(f"rank {rank} outside a group of {p}")
+        self.group = None
+        self.rank, self.p = int(rank), int(p)
+        self.backend = "dry"
+        self.host_staged = False
+        self.reset_counts()
+
+    @staticmethod
+    def _landed(t: torch.Tensor) -> Pending:
+        return Pending([], t, lambda x: x)
+
+    def all_gather_async(self, x, kind: str = "all-gather") -> Pending:
+        self._gathered(x, kind)
+        return self._landed(x.new_empty((self.p * x.shape[0],
+                                         *x.shape[1:])))
+
+    def ppermute_async(self, x, perm: Sequence[Tuple[int, int]],
+                       tag: int = 0) -> Pending:
+        received = any(d == self.rank for _, d in perm)
+        self._permuted(x, received)
+        return self._landed(x.new_empty(x.shape) if received
+                            else x.new_zeros(x.shape))
+
+    def all_to_all_async(self, buf, kind: str = "all-to-all") -> Pending:
+        if buf.shape[0] != self.p:
+            raise ValueError(f"all_to_all buffer has {buf.shape[0]} rows, "
+                             f"group has {self.p} ranks")
+        self._exchanged(buf, kind)
+        return self._landed(buf.new_empty(buf.shape))
+
+    def broadcast(self, t, src: int = 0, kind: str = "broadcast"):
+        self._broadcast_counts(t, src, kind)
+        return t.new_empty(t.shape)
+
+    def scatter(self, t, shape: Tuple[int, ...], like, src: int = 0,
+                kind: str = "scatter"):
+        if self.rank == src:
+            self._check_scatter(t, shape)
+        out = like.new_empty(tuple(shape))
+        self._broadcast_counts(out, src, kind)
+        return out
+
+    def barrier(self) -> None:
+        pass
 
 
 def mesh_comm(p_blk: int, p_nv: int) -> Tuple[Comm, int]:

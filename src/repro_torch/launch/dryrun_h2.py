@@ -13,7 +13,7 @@ Where the reference lowers and compiles one ``shard_map`` program over 512
 fake XLA devices, the port walks ONE rank's local program on the ``meta``
 device: every tensor has its shape and dtype and nothing is allocated.
 ``abstract_dist_data`` is that rank's view (what ``core.dist.local_shard``
-would hand it), ``DryComm`` stands in for its process group (collectives
+would hand it), ``core.comm.DryComm`` stands in for its process group (collectives
 return meta tensors of the landed shape and count their bytes as ``Comm``
 does, so the totals compare with ``matvec_comm_bytes``), and
 ``perf.op_cost`` counts the dispatched operators.  The walk runs the plain
@@ -38,7 +38,7 @@ import torch
 from repro_torch.core.admissibility import build_block_structure
 from repro_torch.core.clustering import build_cluster_tree, \
     regular_grid_points
-from repro_torch.core.comm import Comm, Pending
+from repro_torch.core.comm import DryComm
 from repro_torch.core.dist import DistH2Data, DistH2Shape, \
     dist_compress_local, dist_h2_matvec_local, matvec_comm_bytes
 from repro_torch.core.halo import HaloPlan
@@ -219,55 +219,6 @@ def resident_bytes(d) -> int:
                 walk(getattr(v, f.name))
     walk(d)
     return tot
-
-
-class DryComm(Comm):
-    """A ``Comm`` with no process group: rank ``rank`` of ``p``.  Every
-    collective returns an uninitialised tensor of the landed shape on the
-    payload's device (``meta`` in the dry run) and counts the bytes this
-    rank would receive under the same kinds and rules as ``Comm``, so the
-    totals compare with ``matvec_comm_bytes``."""
-
-    def __init__(self, rank: int, p: int):
-        if not 0 <= rank < p:
-            raise ValueError(f"rank {rank} outside a group of {p}")
-        self.group = None
-        self.rank, self.p = int(rank), int(p)
-        self.backend = "dry"
-        self.host_staged = False
-        self.reset_counts()
-
-    @staticmethod
-    def _landed(t: torch.Tensor) -> Pending:
-        return Pending([], t, lambda x: x)
-
-    def all_gather_async(self, x, kind: str = "all-gather") -> Pending:
-        self._count(kind, (self.p - 1) * x.numel() * x.element_size())
-        return self._landed(x.new_empty((self.p * x.shape[0],
-                                         *x.shape[1:])))
-
-    def ppermute_async(self, x, perm: Sequence[Tuple[int, int]],
-                       tag: int = 0) -> Pending:
-        if any(d == self.rank for _, d in perm):
-            self._count("collective-permute", x.numel() * x.element_size())
-            return self._landed(x.new_empty(x.shape))
-        return self._landed(x.new_zeros(x.shape))
-
-    def all_to_all_async(self, buf) -> Pending:
-        if buf.shape[0] != self.p:
-            raise ValueError(f"all_to_all buffer has {buf.shape[0]} rows, "
-                             f"group has {self.p} ranks")
-        self._count("all-to-all",
-                    (self.p - 1) * buf[0].numel() * buf.element_size())
-        return self._landed(buf.new_empty(buf.shape))
-
-    def broadcast(self, t, src: int = 0, kind: str = "broadcast"):
-        if self.rank != src:
-            self._count(kind, t.numel() * t.element_size())
-        return t.new_empty(t.shape)
-
-    def barrier(self) -> None:
-        pass
 
 
 def cell_shape(layout: MeshLayout, dim: int,

@@ -15,7 +15,8 @@ over the parameter leaves (the layers recomputed in the backward when
 PowerSGD (optional), the cosine schedule and AdamW; the new state is built
 out of place, as the reference's donated ``jax.jit`` step.
 
-With ``mesh=`` (a ``("data", "model")`` ``DeviceMesh``) and ``rules=`` every
+With ``mesh=`` (a ``("data", "model")`` or ``("pod", "data", "model")``
+``DeviceMesh``, or a ``launch.mesh.MeshComms``) and ``rules=`` every
 rank holds its blocks of the state (``parallel/sharding.py``'s specs; FSDP
 gathers a layer's parameters over ``data`` inside the layer, so remat
 gathers them again in the backward), trains on its data shard's rows of
@@ -247,8 +248,8 @@ def train(cfg: ModelConfig, *, steps: int = 50, global_batch: int = 8,
     def make_batch(step):
         if mc is None or not (rules or S.Rules()).batch_shardable:
             return make_train_batch(cfg, data.batch(step), device)
-        return make_train_batch(cfg, data.rows(
-            step, mc.coord("data"), mc.layout.axis_size("data")), device)
+        return make_train_batch(cfg, data.rows(step, mc.data.rank,
+                                               mc.data.p), device)
 
     def one_step(step):
         if injector:

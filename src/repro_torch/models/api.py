@@ -22,9 +22,11 @@ backward when ``cfg.remat``.
 numpy arrays, bfloat16 included), so both packages compute the same
 function.
 
-On a device mesh (``mesh=``, a ``("data", "model")`` ``DeviceMesh`` from
-``launch.mesh.make_device_mesh``/``make_test_mesh``, with ``rules=``, a
-``parallel.sharding.Rules``) every rank calls the entry points in step
+On a device mesh (``mesh=``, a ``("data", "model")`` or ``("pod", "data",
+"model")`` ``DeviceMesh`` from ``launch.mesh.make_device_mesh``/
+``make_test_mesh``, or a ``launch.mesh.MeshComms`` -- ``dry_mesh_comms``'s
+walks one rank on ``meta`` --, with ``rules=``, a
+``parallel.sharding.Rules`` whose data axes are the mesh's) every rank calls the entry points in step
 with its blocks: the parameters laid out by ``param_specs`` (``init_params``
 and ``params_from_numpy`` slice the seeded global tree, so every layout
 starts from the same numbers), its data shard's rows of the batch, and

@@ -230,13 +230,6 @@ def _axes(entry) -> Tuple[str, ...]:
     return (entry,) if isinstance(entry, str) else tuple(entry)
 
 
-def _block_index(mc: MeshComms, axes: Tuple[str, ...]) -> int:
-    idx = 0
-    for a in axes:
-        idx = idx * mc.layout.axis_size(a) + mc.coord(a)
-    return idx
-
-
 def constrain(x, spec: Spec, mesh=None, src: Optional[Spec] = None):
     """``x`` laid out by ``spec`` on ``mesh``, from its current layout
     ``src`` (default: replicated).  Each dim whose axes change is gathered
@@ -257,7 +250,7 @@ def constrain(x, spec: Spec, mesh=None, src: Optional[Spec] = None):
     for i, (a, b) in enumerate(pairs):
         if a != b and b:
             comm = mc.comm(b)
-            if comm is not None and comm.rank != _block_index(mc, b):
+            if comm is not None and comm.rank != mc.index(b):
                 raise ValueError(f"axes {b} are not in the mesh's order")
             x = C.scatter(x, i, comm)
     return x
@@ -273,7 +266,7 @@ def local_block(x, spec: Spec, mesh):
         axes = _axes(spec[i])
         if axes:
             n = mesh_axis_size(mc.layout, axes)
-            x = C.block(x, i, n, _block_index(mc, axes))
+            x = C.block(x, i, n, mc.index(axes))
     return x
 
 
@@ -320,20 +313,23 @@ class ShardCtx:
     ``at``).
 
     ``m``/``t`` are the model axis's size and this rank's coordinate on it,
-    ``dsize``/``d`` the data axis's.  A replicated residual stream is
-    computed alike on every model rank, and its gradient is full there;
+    ``dsize``/``d`` the data axes' (their product and this rank's flat
+    coordinate: the multi-pod ``("pod", "data")`` act as one data
+    group).  A replicated residual stream is computed alike on every
+    model rank, and its gradient is full there;
     the split work of the tensor-parallel regions takes partial
     gradients (``parallel.collectives``)."""
 
     def __init__(self, mc: MeshComms, rules: Rules, specs):
-        if len(rules.data_axes) != 1:
-            raise ValueError("a sharded model run supports one data axis, "
-                             f"got {rules.data_axes}")
+        if tuple(rules.data_axes) != tuple(
+                a for a in mc.layout.axes if a != rules.tp):
+            raise ValueError(f"the rules' data axes {rules.data_axes} are "
+                             f"not the mesh's {mc.layout.axes} less "
+                             f"{rules.tp!r}")
         self.mc, self.rules, self.specs = mc, rules, specs
         self.m = mc.layout.axis_size(rules.tp)
         self.t = mc.coord(rules.tp)
-        self.dsize = mc.layout.axis_size(rules.data_axes[0])
-        self.d = mc.coord(rules.data_axes[0])
+        self.dsize, self.d = mc.data.p, mc.data.rank
         self.model, self.data = mc.model, mc.data
         self.sp = False
         if rules.seq_axes_decode and rules.batch_shardable and \
@@ -406,7 +402,7 @@ class ShardCtx:
         """(this rank's block index, the block count) of the decode cache's
         sequence."""
         axes = _axes(self.rules.decode_seq)
-        return (_block_index(self.mc, axes),
+        return (self.mc.index(axes),
                 mesh_axis_size(self.mc.layout, axes))
 
     def decode_cache(self, kv, cache_len: int, heads_sharded: bool):

@@ -46,8 +46,10 @@ from repro.parallel.sharding import Rules, make_param_shardings
 
 data = dict(np.load(sys.argv[1]))
 cases = json.load(open(sys.argv[2]))
-mesh = jax.make_mesh((2, 2), ("data", "model"),
-                     axis_types=(AxisType.Auto,) * 2)
+shape, axes = json.loads(sys.argv[4]) if len(sys.argv) > 4 else \
+    ((2, 2), ("data", "model"))
+mesh = jax.make_mesh(tuple(shape), tuple(axes),
+                     axis_types=(AxisType.Auto,) * len(axes))
 
 
 def tree(prefix):
@@ -79,8 +81,9 @@ for case in cases:
     cfg = get_config(case["arch"]).reduced(param_dtype="float32",
                                            act_dtype="float32")
     kw = dict(case["rules"])
-    if kw.get("seq_axes_decode"):
-        kw["seq_axes_decode"] = tuple(kw["seq_axes_decode"])
+    for k in ("seq_axes_decode", "data_axes"):
+        if kw.get(k):
+            kw[k] = tuple(kw[k])
     rules = Rules(**kw)
     params = tree(case["arch"] + "|p|")
     p = jax.tree.map(jax.device_put, params,
@@ -191,20 +194,21 @@ def write_inputs(path, cases):
 def case_rules(case):
     from repro_torch.parallel.sharding import Rules
     kw = dict(case["rules"])
-    if kw.get("seq_axes_decode"):
-        kw["seq_axes_decode"] = tuple(kw["seq_axes_decode"])
+    for k in ("seq_axes_decode", "data_axes"):
+        if kw.get(k):
+            kw[k] = tuple(kw[k])
     return Rules(**kw)
 
 
 def data_rows(x, rules, mesh):
-    """This data shard's rows of a global batch tensor."""
+    """This data shard's rows of a global batch tensor (on the multi-pod
+    mesh the shards of the flattened pod x data group)."""
     from repro_torch.launch.mesh import mesh_comms
     if not rules.batch_shardable:
         return x
     mc = mesh_comms(mesh)
-    n = mc.layout.axis_size("data")
-    per = x.shape[0] // n
-    d = mc.coord("data")
+    per = x.shape[0] // mc.data.p
+    d = mc.data.rank
     return x[d * per:(d + 1) * per]
 
 
@@ -277,14 +281,17 @@ def env():
     return e
 
 
-def start_reference(tmp, cases):
-    """The reference's subprocess on ``tmp/inputs.npz`` (running)."""
+def start_reference(tmp, cases, mesh=((2, 2), ("data", "model"))):
+    """The reference's subprocess on ``tmp/inputs.npz`` (running), on an
+    Auto-axis mesh of ``mesh`` = (shape, axis names) over 4 host
+    devices."""
     with open(tmp / "cases.json", "w") as f:
         json.dump(cases, f)
     return subprocess.Popen(
         [sys.executable, "-c", REF_SCRIPT, str(tmp / "inputs.npz"),
-         str(tmp / "cases.json"), str(tmp / "ref.npz")], env=env(),
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+         str(tmp / "cases.json"), str(tmp / "ref.npz"), json.dumps(mesh)],
+        env=env(), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
 
 
 def run_ranks(target, tmp, args=(), world=4):
