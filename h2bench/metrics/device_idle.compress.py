@@ -1,0 +1,7 @@
+"""Idle share of the device over the traced window of back-to-back
+recompressions."""
+from h2bench.readers import idle_share
+
+
+def read(ctx):
+    return idle_share(ctx)
