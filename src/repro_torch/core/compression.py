@@ -127,11 +127,12 @@ def _pack_truncated(shape: H2Shape, data: H2Data, u_leaf, v_leaf, e_new,
     with phase("compress/project-s"):
         s_new = project_couplings(shape, data, pu, pv)
     new_ranks = tuple(int(pu[l].shape[1]) for l in range(shape.depth + 1))
-    new_data = remarshal(H2Data(
-        u_leaf=u_leaf, v_leaf=v_leaf, e=e_new, f=f_new,
-        s=s_new, s_rows=list(data.s_rows), s_cols=list(data.s_cols),
-        dense=data.dense, d_rows=data.d_rows, d_cols=data.d_cols,
-        plan=data.plan, dense_mar=data.dense_mar), dense=False)
+    with phase("compress/remarshal"):
+        new_data = remarshal(H2Data(
+            u_leaf=u_leaf, v_leaf=v_leaf, e=e_new, f=f_new,
+            s=s_new, s_rows=list(data.s_rows), s_cols=list(data.s_cols),
+            dense=data.dense, d_rows=data.d_rows, d_cols=data.d_cols,
+            plan=data.plan, dense_mar=data.dense_mar), dense=False)
     return dataclasses.replace(shape, ranks=new_ranks), new_data
 
 
@@ -173,6 +174,14 @@ def truncate(shape: H2Shape, data: H2Data, ru: List[torch.Tensor],
     return _pack_truncated(shape, data, u_leaf, v_leaf, e_new, f_new, pu, pv)
 
 
+def _host_read(value: torch.Tensor, cast):
+    """``cast(value)``: one device-to-host read of the rank pick, in its
+    own span ``compress/rank-pick`` (a round trip the card idles through:
+    a trace puts the idle gap after the read down to this span)."""
+    with phase("compress/rank-pick"):
+        return cast(value)
+
+
 def truncate_by_tol(shape: H2Shape, data: H2Data, ru: List[torch.Tensor],
                     rv: List[torch.Tensor], tol: float, backend: str = "cuda"
                     ) -> Tuple[H2Shape, H2Data]:
@@ -189,11 +198,11 @@ def truncate_by_tol(shape: H2Shape, data: H2Data, ru: List[torch.Tensor],
         wu, su = truncation_leaf_factors(ru[depth], backend)
         wv, sv = (wu, su) if sym else truncation_leaf_factors(rv[depth],
                                                               backend)
-        thresh = tol * float(torch.maximum(su.max(), sv.max()))
+        thresh = tol * _host_read(torch.maximum(su.max(), sv.max()), float)
 
         def count2(s_a, s_b) -> int:
-            c = max(int((s_a > thresh).sum(dim=-1).max()),
-                    int((s_b > thresh).sum(dim=-1).max()))
+            c = max(_host_read((s_a > thresh).sum(dim=-1).max(), int),
+                    _host_read((s_b > thresh).sum(dim=-1).max(), int))
             return max(c, 1)
 
         rq = min(count2(su, sv), shape.ranks[depth])

@@ -20,6 +20,8 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.obs.trace import phase
+
 from .admissibility import BlockStructure, build_block_structure
 from .chebyshev import build_chebyshev_bases, build_coupling, build_dense
 from .clustering import ClusterTree, build_cluster_tree
@@ -45,27 +47,37 @@ def construct_h2(points: np.ndarray, kernel: Callable, leaf_size: int,
     if method != "cheb":
         raise ValueError(f"unknown construction method {method!r}")
     device = torch.device(device)
-    tree = build_cluster_tree(points, leaf_size)
-    bs = build_block_structure(tree, eta, min_level=min_level)
+    # the spans are host time (no synchronize): a stage's queued device
+    # work lands in the next span that waits for the device
+    with phase("construct/cluster-tree"):
+        tree = build_cluster_tree(points, leaf_size)
+    with phase("construct/block-structure"):
+        bs = build_block_structure(tree, eta, min_level=min_level)
     k = cheb_p ** tree.dim
     depth = tree.depth
 
-    u_leaf, e_list = build_chebyshev_bases(tree, cheb_p, device, dtype)
-    s_list = [build_coupling(tree, cheb_p, l, bs.s_rows[l], bs.s_cols[l],
-                             kernel, device, dtype) for l in range(depth + 1)]
-    dense = build_dense(tree, bs.d_rows, bs.d_cols, kernel, device, dtype)
+    with phase("construct/bases"):
+        u_leaf, e_list = build_chebyshev_bases(tree, cheb_p, device, dtype)
+    with phase("construct/coupling"):
+        s_list = [build_coupling(tree, cheb_p, l, bs.s_rows[l],
+                                 bs.s_cols[l], kernel, device, dtype)
+                  for l in range(depth + 1)]
+    with phase("construct/dense"):
+        dense = build_dense(tree, bs.d_rows, bs.d_cols, kernel, device,
+                            dtype)
 
     def i32(a):
         return torch.as_tensor(a, dtype=torch.int32, device=device)
 
-    plan = build_coupling_plan(depth, bs.s_rows, bs.s_cols,
-                               bs.d_rows, bs.d_cols, device)
-    data = remarshal(H2Data(
-        u_leaf=u_leaf, v_leaf=u_leaf, e=e_list, f=list(e_list),
-        s=s_list, s_rows=[i32(r) for r in bs.s_rows],
-        s_cols=[i32(c) for c in bs.s_cols],
-        dense=dense, d_rows=i32(bs.d_rows), d_cols=i32(bs.d_cols),
-        plan=plan))
+    with phase("construct/marshal"):
+        plan = build_coupling_plan(depth, bs.s_rows, bs.s_cols,
+                                   bs.d_rows, bs.d_cols, device)
+        data = remarshal(H2Data(
+            u_leaf=u_leaf, v_leaf=u_leaf, e=e_list, f=list(e_list),
+            s=s_list, s_rows=[i32(r) for r in bs.s_rows],
+            s_cols=[i32(c) for c in bs.s_cols],
+            dense=dense, d_rows=i32(bs.d_rows), d_cols=i32(bs.d_cols),
+            plan=plan))
 
     shape = H2Shape(
         n=tree.n, leaf_size=leaf_size, depth=depth,

@@ -75,8 +75,9 @@ def orthogonalize(shape: H2Shape, data: H2Data, backend: str = "cuda"
         s_new = project_couplings(shape, data, ru, rv)
     # the structure (and so the plan) is unchanged; S values are new, so
     # the marshaled buffers are regathered from the plan
-    return remarshal(H2Data(
-        u_leaf=u_leaf, v_leaf=v_leaf, e=e_new, f=f_new, s=s_new,
-        s_rows=list(data.s_rows), s_cols=list(data.s_cols),
-        dense=data.dense, d_rows=data.d_rows, d_cols=data.d_cols,
-        plan=data.plan, dense_mar=data.dense_mar), dense=False)
+    with phase("compress/remarshal"):
+        return remarshal(H2Data(
+            u_leaf=u_leaf, v_leaf=v_leaf, e=e_new, f=f_new, s=s_new,
+            s_rows=list(data.s_rows), s_cols=list(data.s_cols),
+            dense=data.dense, d_rows=data.d_rows, d_cols=data.d_cols,
+            plan=data.plan, dense_mar=data.dense_mar), dense=False)

@@ -16,6 +16,8 @@ import subprocess
 from pathlib import Path
 from typing import Dict, Iterable
 
+from repro_torch.obs.trace import phase
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 KERNELS = ("batched_gemm", "coupling_mv", "batched_qr", "batched_svd",
            "halo_pack")
@@ -46,32 +48,34 @@ def _target(name: str) -> Path:
 
 def build_all(names: Iterable[str] = KERNELS) -> Dict[str, str]:
     """Compile every missing library in parallel; returns nvcc's output
-    (register and shared-memory use from ``-Xptxas -v``) per kernel."""
-    todo = [(n, _target(n)) for n in names if not _target(n).exists()]
-    if not todo:
-        return {}
-    build_dir().mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
-    procs = []
-    for name, out in todo:
-        tmp = out.with_suffix(f".tmp{os.getpid()}.so")
-        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-               str(CSRC / f"{name}.cu")]
-        procs.append((name, out, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)))
-    logs, failed = {}, []
-    for name, out, tmp, proc in procs:
-        log, _ = proc.communicate()
-        logs[name] = log
-        if proc.returncode != 0:
-            failed.append(name)
-            continue
-        os.replace(tmp, out)
-    if failed:
-        raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n" +
-                           "\n".join(logs[n] for n in failed))
-    return logs
+    (register and shared-memory use from ``-Xptxas -v``) per kernel.  The
+    check and the build run in the span ``kernels/build``."""
+    with phase("kernels/build"):
+        todo = [(n, _target(n)) for n in names if not _target(n).exists()]
+        if not todo:
+            return {}
+        build_dir().mkdir(parents=True, exist_ok=True)
+        nvcc = _nvcc()
+        procs = []
+        for name, out in todo:
+            tmp = out.with_suffix(f".tmp{os.getpid()}.so")
+            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+                   str(CSRC / f"{name}.cu")]
+            procs.append((name, out, tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        logs, failed = {}, []
+        for name, out, tmp, proc in procs:
+            log, _ = proc.communicate()
+            logs[name] = log
+            if proc.returncode != 0:
+                failed.append(name)
+                continue
+            os.replace(tmp, out)
+        if failed:
+            raise RuntimeError("nvcc failed for " + ", ".join(failed) +
+                               ":\n" + "\n".join(logs[n] for n in failed))
+        return logs
 
 
 def load(name: str, signatures: Dict[str, tuple]) -> ctypes.CDLL:

@@ -145,8 +145,9 @@ def test_flops_model_matches(operator, nv):
 
 
 def test_phases_recorded(operator):
-    from repro_torch.obs.trace import PHASES_SEEN
+    from repro_torch.obs.trace import PHASES_SEEN, reset_span_totals
     _, _, shape, _, pshape, pdata = operator
+    reset_span_totals()
     tm.h2_matvec(pshape, pdata, torch.zeros(shape.n, 1))
     assert {"hgemv/upsweep", "hgemv/coupling-gemm", "hgemv/downsweep",
             "hgemv/dense"} <= PHASES_SEEN

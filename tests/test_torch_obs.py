@@ -6,25 +6,33 @@ The load-bearing guarantee, the port's counterpart of the reference's
 byte-equal jaxprs: ``obs.trace.phase`` is on by default on every hot path,
 and with tracing on and off a function dispatches the same sequence of
 ATen operations (recorded by a ``TorchDispatchMode``; the only difference
-is ``record_function``'s ``profiler::`` marks) and gives bitwise-equal
-results -- for the HGEMV, a PCG segment of ``solve``'s solver and
-``compress`` here, for rank 0 of the distributed solve in
-``tests/test_torch_profile_solve.py``.  While disabled, ``phase`` records
-nothing.  Also: the lazy ``obs`` attributes, the timers' env threading
-(as ``tests/test_obs.py``), ``IterationTimer``, ``wire_bytes``,
-``PhaseRecord`` and ``records_to_json`` equal to the reference's on the
-same inputs, ``perf.op_cost``'s matrix-product flops equal to the
-reference's ``dot_general`` flops for ``h2_matvec`` (nv 1 and 4) and the
-fixed-rank ``compress`` at N = 256 (totals within the stated bounds), and
-``phase_comm_model`` equal to the reference's key by key, summing to
-``dist_solve_comm_bytes``, for every comm mode at n = 16, p in {2, 4, 8}.
+is ``record_function``'s ``profiler::`` marks, dispatched only while a
+profiler records) and gives bitwise-equal results -- for the HGEMV, a PCG segment of ``solve``'s solver,
+``compress`` and ``construct_h2`` here, for rank 0 of the distributed
+solve in ``tests/test_torch_profile_solve.py``.  While disabled, ``phase``
+records nothing.  The span totals count every phase entered, from every
+thread, with its host seconds; ``construct_h2`` enters each
+``construct/*`` stage once, and ``compress(tol=...)`` one
+``compress/rank-pick`` per device-to-host read of its rank pick and one
+``compress/remarshal`` per regathering. Also: the lazy ``obs`` attributes,
+the timers' env threading (as ``tests/test_obs.py``), ``IterationTimer``,
+``wire_bytes``, ``PhaseRecord`` and ``records_to_json`` equal to the
+reference's on the same inputs, ``perf.op_cost``'s matrix-product flops
+equal to the reference's ``dot_general`` flops for ``h2_matvec`` (nv 1 and
+4) and the fixed-rank ``compress`` at N = 256 (totals within the stated
+bounds), and ``phase_comm_model`` equal to the reference's key by key,
+summing to ``dist_solve_comm_bytes``, for every comm mode at n = 16, p in
+{2, 4, 8}.
 
 JAX is imported inside fixtures and tests only.
 """
+import contextlib
 import dataclasses
 import os
 import subprocess
 import sys
+import threading
+import time
 
 import numpy as np
 import pytest
@@ -94,20 +102,30 @@ def _flat(out):
 
 
 def _neutral(fn):
-    """Run ``fn`` with tracing on and off: the same ops, the same bits."""
+    """Run ``fn`` with tracing on and off under a profiler (which makes
+    every phase open its range), and with tracing on and no profiler (no
+    range, span totals only): the same ops, the same bits."""
     res = {}
-    for flag in (True, False):
+    for flag, profiled in ((True, True), (False, True), (True, False)):
         trace.set_enabled(flag)
+        trace.reset_span_totals()
         rec = _Ops()
-        with rec:
+        with (torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU]) if profiled
+              else contextlib.nullcontext()), rec:
             out = fn()
-        res[flag] = (rec, _flat(out))
-    (on, out_on), (off, out_off) = res[True], res[False]
-    assert on.ops == off.ops
-    assert on.marks > 0 and off.marks == 0   # phases were on, then off
-    assert len(out_on) == len(out_off) > 0
-    assert all(torch.equal(a, b) for a, b in zip(out_on, out_off))
-    return on
+        res[flag, profiled] = (rec, _flat(out), trace.span_totals())
+    on, off, bare = res[True, True], res[False, True], res[True, False]
+    assert on[0].ops == off[0].ops == bare[0].ops
+    # phases were on (their ranges opened only under the profiler), then off
+    assert on[0].marks > 0 and off[0].marks == 0 and bare[0].marks == 0
+    assert on[2] and not off[2] and \
+        {k: c for k, (c, _) in bare[2].items()} == \
+        {k: c for k, (c, _) in on[2].items()}
+    assert len(on[1]) == len(off[1]) == len(bare[1]) > 0
+    assert all(torch.equal(a, b) and torch.equal(a, c)
+               for a, b, c in zip(on[1], off[1], bare[1]))
+    return on[0]
 
 
 # ---------------------------------------------------------------------------
@@ -116,7 +134,7 @@ def _neutral(fn):
 
 def test_obs_exports_and_lazy_modules():
     for name in ("phase", "annotate", "enabled", "set_enabled",
-                 "PHASES_SEEN"):
+                 "PHASES_SEEN", "span_totals", "reset_span_totals"):
         assert name in obs.__all__ and hasattr(obs, name)
     for name in ("timers", "metrics", "export", "profile_solve"):
         assert getattr(obs, name).__name__ == f"repro_torch.obs.{name}"
@@ -138,17 +156,89 @@ def test_env_switch_disables():
 def test_disabled_phase_registers_nothing():
     trace.set_enabled(False)
     before = set(trace.PHASES_SEEN)
+    totals = trace.span_totals()
     with trace.phase_times() as pt:
         with trace.phase("obs-test/never-on"):
             pass
     assert "obs-test/never-on" not in trace.PHASES_SEEN
     assert trace.PHASES_SEEN == before
+    assert trace.span_totals() == totals
     assert dict(pt) == {}
     trace.set_enabled(True)
     with trace.phase_times() as pt:
         with trace.phase("obs-test/on"):
             pass
     assert "obs-test/on" in trace.PHASES_SEEN and "obs-test/on" in pt
+    assert trace.span_totals()["obs-test/on"][0] == \
+        totals.get("obs-test/on", (0, 0.0))[0] + 1
+
+
+def test_span_totals_count_and_time_each_phase():
+    """One count a phase entered and its host seconds, nested phases each
+    in full; ``reset_span_totals`` clears the table and ``PHASES_SEEN``
+    with it, and a phase open across a reset is dropped."""
+    trace.reset_span_totals()
+    assert trace.span_totals() == {} and not trace.PHASES_SEEN
+    for _ in range(3):
+        with trace.phase("obs-test/outer"):
+            with trace.phase("obs-test/inner"):
+                time.sleep(0.002)
+    with pytest.raises(ValueError):
+        with trace.phase("obs-test/raises"):
+            raise ValueError("the span still closes")
+    got = trace.span_totals()
+    assert set(got) == set(trace.PHASES_SEEN) == {
+        "obs-test/outer", "obs-test/inner", "obs-test/raises"}
+    (n_out, s_out), (n_in, s_in) = got["obs-test/outer"], \
+        got["obs-test/inner"]
+    assert n_out == n_in == 3 and got["obs-test/raises"][0] == 1
+    assert s_out >= s_in >= 3 * 0.002
+    got["obs-test/outer"] = (0, 0.0)            # a copy, not the table
+    assert trace.span_totals()["obs-test/outer"][0] == 3
+    with trace.phase("obs-test/across-reset"):
+        trace.reset_span_totals()
+    assert trace.span_totals() == {} and not trace.PHASES_SEEN
+
+
+def test_phase_range_opens_only_under_a_profiler():
+    """A profiler's trace holds the phase's range; without a profiler the
+    phase dispatches no mark and still counts in the span totals."""
+    trace.reset_span_totals()
+    rec = _Ops()
+    with rec, trace.phase("obs-test/bare"):
+        torch.ones(2).sum()
+    assert rec.marks == 0 and rec.ops
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with trace.phase("obs-test/profiled"):
+            torch.ones(2).sum()
+    names = {e.name for e in prof.events()}
+    assert "obs-test/profiled" in names and "obs-test/bare" not in names
+    assert {k: c for k, (c, _) in trace.span_totals().items()} == {
+        "obs-test/bare": 1, "obs-test/profiled": 1}
+
+
+def test_span_totals_lose_no_count_across_threads():
+    """16 threads entering phases at a short switch interval: every entry
+    is counted."""
+    trace.reset_span_totals()
+    n_threads, n_each = 16, 200
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        def work():
+            for _ in range(n_each):
+                with trace.phase("obs-test/threads"):
+                    pass
+        threads = [threading.Thread(target=work) for _ in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(old)
+    assert trace.span_totals()["obs-test/threads"][0] == n_threads * n_each
 
 
 def test_annotate_wraps_every_call():
@@ -162,7 +252,7 @@ def test_annotate_wraps_every_call():
     assert f(3) == 6 and f.__name__ == "f"
     assert "obs-test/annotated" in trace.PHASES_SEEN
     trace.set_enabled(False)
-    trace.PHASES_SEEN.discard("obs-test/annotated")
+    trace.reset_span_totals()
     assert f(4) == 8 and calls == [3, 4]
     assert "obs-test/annotated" not in trace.PHASES_SEEN
 
@@ -170,9 +260,50 @@ def test_annotate_wraps_every_call():
 def test_phases_registered(small_h2):
     from repro_torch.core.matvec import h2_matvec
     *_, pshape, pdata = small_h2
+    trace.reset_span_totals()
     h2_matvec(pshape, pdata, torch.ones(pshape.n, 1), backend="torch")
     assert {"hgemv/upsweep", "hgemv/coupling-gemm", "hgemv/downsweep",
             "hgemv/dense"} <= trace.PHASES_SEEN
+
+
+CONSTRUCT_SPANS = ("construct/cluster-tree", "construct/block-structure",
+                   "construct/bases", "construct/coupling",
+                   "construct/dense", "construct/marshal")
+
+
+def _port_construct():
+    """The port's own Chebyshev construction at N = 256 (leaf 16, p = 4)
+    on the CPU."""
+    from repro_torch.core.clustering import regular_grid_points
+    from repro_torch.core.construction import construct_h2
+    from repro_torch.core.kernels_fn import exponential_kernel
+    return construct_h2(regular_grid_points(16, 2), exponential_kernel(0.1),
+                        leaf_size=16, cheb_p=4, eta=0.9, device="cpu")
+
+
+def test_construct_enters_each_stage_once():
+    trace.reset_span_totals()
+    _port_construct()
+    got = trace.span_totals()
+    assert set(got) == set(CONSTRUCT_SPANS)
+    for name in CONSTRUCT_SPANS:
+        count, seconds = got[name]
+        assert count == 1 and seconds > 0, name
+
+
+def test_compress_spans_its_round_trips_and_regatherings(small_h2):
+    """``compress(tol=1e-3)`` at depth 4: one ``compress/rank-pick`` per
+    device-to-host read (the scale, then two counts at each of the 5
+    levels) and one ``compress/remarshal`` after each of the
+    orthogonalization and the truncation."""
+    from repro_torch.core.compression import compress
+    *_, pshape, pdata = small_h2
+    assert pshape.depth == 4
+    trace.reset_span_totals()
+    compress(pshape, pdata, tol=1e-3)
+    got = trace.span_totals()
+    assert got["compress/rank-pick"][0] == 1 + 2 * (pshape.depth + 1)
+    assert got["compress/remarshal"][0] == 2
 
 
 # ---------------------------------------------------------------------------
@@ -208,6 +339,10 @@ def test_neutral_compress(small_h2):
     *_, pshape, pdata = small_h2
     _neutral(lambda: compress(pshape, pdata, tol=1e-3, backend="torch")[1]
              .e)
+
+
+def test_neutral_construct():
+    _neutral(lambda: _port_construct()[1])
 
 
 # ---------------------------------------------------------------------------
