@@ -1,10 +1,14 @@
-"""Balanced binary KD cluster tree over a point set (host-side, numpy).
+"""Balanced binary KD cluster tree over a point set.
 
-The tree is built once on the host and gives the static scaffolding of an
-H^2 matrix: a *perfectly balanced* tree (median split on the widest
-bounding-box dimension) with ``N = m * 2**depth`` points, so level ``l`` has
-exactly ``2**l`` nodes and node data is stored in dense ``[2**l, ...]``
-tensors.  The split rule is the reference's, so ``perm`` is identical.
+The tree is built once, level by level on the construction's device, and
+gives the static scaffolding of an H^2 matrix: a *perfectly balanced* tree
+(median split on the widest bounding-box dimension) with
+``N = m * 2**depth`` points, so level ``l`` has exactly ``2**l`` nodes and
+node data is stored in dense ``[2**l, ...]`` tensors.  The split rule is
+the reference's, so ``perm``, ``points`` and every box equal its own (a
+box side that is zero may differ in the sign of that zero: which one a
+min or max keeps follows its order of evaluation); the finished tree is
+held in numpy on the host.
 """
 from __future__ import annotations
 
@@ -12,6 +16,7 @@ import dataclasses
 from typing import Tuple
 
 import numpy as np
+import torch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,26 +58,18 @@ class ClusterTree:
         return np.linalg.norm(d, axis=-1)
 
 
-def _split_recursive(pts: np.ndarray, idx: np.ndarray, level: int, depth: int,
-                     out_perm: np.ndarray, pos: int) -> int:
-    """Recursively median-split ``idx`` until ``level == depth``."""
-    if level == depth:
-        n = idx.shape[0]
-        out_perm[pos:pos + n] = idx
-        return pos + n
-    sub = pts[idx]
-    widths = sub.max(axis=0) - sub.min(axis=0)
-    axis = int(np.argmax(widths))
-    order = np.argsort(sub[:, axis], kind="stable")
-    half = idx.shape[0] // 2
-    left, right = idx[order[:half]], idx[order[half:]]
-    pos = _split_recursive(pts, left, level + 1, depth, out_perm, pos)
-    pos = _split_recursive(pts, right, level + 1, depth, out_perm, pos)
-    return pos
+def build_cluster_tree(points: np.ndarray, leaf_size: int,
+                       device="cpu") -> ClusterTree:
+    """Build a balanced KD tree; requires ``N == leaf_size * 2**depth``.
 
-
-def build_cluster_tree(points: np.ndarray, leaf_size: int) -> ClusterTree:
-    """Build a balanced KD tree; requires ``N == leaf_size * 2**depth``."""
+    One pass a level on ``device`` (a ``meta`` device builds on the CPU):
+    level ``l``'s nodes are ``2**l`` contiguous runs of ``N >> l`` points
+    in the current order, so their boxes are one reduction and their
+    median splits one segmented stable sort.  A stable sort of a node's
+    keys in the order inherited from its parent is the reference's
+    per-node ``argsort(kind="stable")``; adding 0.0 to the keys turns -0.0
+    into +0.0, so a radix sort sees the one zero that a comparison sees.
+    """
     points = np.asarray(points, dtype=np.float64)
     n = points.shape[0]
     if n % leaf_size != 0:
@@ -82,18 +79,32 @@ def build_cluster_tree(points: np.ndarray, leaf_size: int) -> ClusterTree:
     if (1 << depth) != n_leaves:
         raise ValueError(f"N/leaf_size={n_leaves} must be a power of two")
 
-    perm = np.empty(n, dtype=np.int64)
-    _split_recursive(points, np.arange(n, dtype=np.int64), 0, depth, perm, 0)
-    pts = points[perm]
-
-    box_min, box_max = [], []
+    device = torch.device(device)
+    if device.type == "meta":
+        device = torch.device("cpu")
+    pts = torch.as_tensor(points, device=device)
+    dim = pts.shape[1]
+    idx = torch.arange(n, device=device)
+    boxes = []
     for l in range(depth + 1):
-        w = n >> l
-        resh = pts.reshape(1 << l, w, -1)
-        box_min.append(resh.min(axis=1))
-        box_max.append(resh.max(axis=1))
-    return ClusterTree(points=pts, perm=perm, depth=depth, leaf_size=leaf_size,
-                       box_min=tuple(box_min), box_max=tuple(box_max))
+        sub = pts[idx].view(1 << l, n >> l, dim)
+        lo, hi = sub.amin(1), sub.amax(1)
+        boxes.append(torch.stack((lo, hi)))
+        if l == depth:
+            break
+        axis = (hi - lo).argmax(1)
+        key = torch.take_along_dim(sub, axis[:, None, None], 2)[..., 0] + 0.0
+        order = torch.sort(key, dim=1, stable=True).indices
+        idx = torch.take_along_dim(idx.view(1 << l, -1), order, 1).view(-1)
+
+    # one copy back: every level's boxes side by side, [2, 2**(depth+1)-1, dim]
+    lo_hi = torch.cat(boxes, 1).cpu().numpy()
+    cuts = [(1 << l) - 1 for l in range(1, depth + 1)]
+    return ClusterTree(points=sub.reshape(n, dim).cpu().numpy(),
+                       perm=idx.cpu().numpy(), depth=depth,
+                       leaf_size=leaf_size,
+                       box_min=tuple(np.split(lo_hi[0], cuts)),
+                       box_max=tuple(np.split(lo_hi[1], cuts)))
 
 
 def regular_grid_points(side: int, dim: int, lo: float = 0.0,

@@ -2,11 +2,11 @@
 
 Two construction paths share this entry point:
 
-- ``method="cheb"`` (default) -- the paper's path: cluster tree ->
-  dual-tree traversal (host numpy, vectorized) -> Chebyshev interpolation
-  for the low-rank blocks and direct kernel evaluation for the dense
-  leaves.  The kernel evaluations run batched on ``device`` in float64 and
-  are rounded to ``dtype``.
+- ``method="cheb"`` (default) -- the paper's path: cluster tree (built on
+  ``device``) -> dual-tree traversal (host numpy, vectorized) -> Chebyshev
+  interpolation for the low-rank blocks and direct kernel evaluation for
+  the dense leaves.  The kernel evaluations run batched on ``device`` in
+  float64 and are rounded to ``dtype``.
 - ``method="sketch"`` -- the on-device randomized sketching path
   (``repro_torch.sketch``): batched kernel-block sampling + nested-basis
   rangefinder, in ``dtype`` on ``device``; extra options go in
@@ -50,7 +50,7 @@ def construct_h2(points: np.ndarray, kernel: Callable, leaf_size: int,
     # the spans are host time (no synchronize): a stage's queued device
     # work lands in the next span that waits for the device
     with phase("construct/cluster-tree"):
-        tree = build_cluster_tree(points, leaf_size)
+        tree = build_cluster_tree(points, leaf_size, device)
     with phase("construct/block-structure"):
         bs = build_block_structure(tree, eta, min_level=min_level)
     k = cheb_p ** tree.dim

@@ -138,7 +138,7 @@ def construct_from_matvec(matvec: Callable[[torch.Tensor], torch.Tensor],
     ``ValueError`` is raised otherwise.
     """
     device = torch.device(device)
-    tree = build_cluster_tree(points, leaf_size)
+    tree = build_cluster_tree(points, leaf_size, device)
     bs = build_block_structure(tree, eta, min_level=min_level)
     n = tree.n
     if check_symmetry:

@@ -147,7 +147,7 @@ def sketch_construct(points: np.ndarray, kernel: Callable, leaf_size: int,
     construction.
     """
     device = torch.device(device)
-    tree = build_cluster_tree(points, leaf_size)
+    tree = build_cluster_tree(points, leaf_size, device)
     bs = build_block_structure(tree, eta, min_level=min_level)
     depth = tree.depth
     n = tree.n
